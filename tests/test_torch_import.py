@@ -1,0 +1,163 @@
+"""Import and copy guards of the PyTorch port (blackbox_tpu_torch).
+
+The port must run where jax is not installed, so it imports nothing of
+jax, and carries copies of the few pure-Python pieces of blackbox_tpu
+its slice needs (importing anything from blackbox_tpu imports jax).
+These tests hold each copy equal to its original.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import torch_parity  # noqa: E402,F401  (pins torch threads)
+
+SLICE_MODULES = [
+    "blackbox_tpu_torch",
+    "blackbox_tpu_torch.config",
+    "blackbox_tpu_torch.kernels",
+    "blackbox_tpu_torch.core.geometry",
+    "blackbox_tpu_torch.core.maskbits",
+    "blackbox_tpu_torch.ops.stats",
+    "blackbox_tpu_torch.ops.polyfit",
+    "blackbox_tpu_torch.ops.gain",
+    "blackbox_tpu_torch.ops.overscan",
+    "blackbox_tpu_torch.ops.morphology",
+    "blackbox_tpu_torch.ops.masking",
+    "blackbox_tpu_torch.ops.labeling",
+    "blackbox_tpu_torch.ops.filters",
+    "blackbox_tpu_torch.ops.cosmics",
+    "blackbox_tpu_torch.ops.xtalk",
+    "blackbox_tpu_torch.ops.satdet",
+    "blackbox_tpu_torch.ops.background",
+    "blackbox_tpu_torch.ops.windows",
+    "blackbox_tpu_torch.ops.detection",
+    "blackbox_tpu_torch.ops.photometry",
+    "blackbox_tpu_torch.ops.psf",
+    "blackbox_tpu_torch.pipeline.reduce",
+    "blackbox_tpu_torch.synth.device",
+]
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m in ('jax', 'blackbox_tpu')\n"
+            "             or m.startswith(('jax.', 'jaxlib', 'blackbox_tpu.')))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("name", ["MEERLICHT", "TINY"])
+def test_geometry_copy(name):
+    from blackbox_tpu.core import geometry as jg
+    from blackbox_tpu_torch.core import geometry as tg
+    want = getattr(jg, name)
+    got = getattr(tg, name)
+    assert ([f.name for f in dataclasses.fields(got)]
+            == [f.name for f in dataclasses.fields(want)])
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for prop in ("n_chan", "dy", "dx", "raw_shape", "red_shape",
+                 "chan_shape", "os_vert_width", "os_hori_height"):
+        assert getattr(got, prop) == getattr(want, prop), prop
+
+
+def test_maskbits_copy():
+    from blackbox_tpu.core import maskbits as jm
+    from blackbox_tpu_torch.core import maskbits as tm
+    for name in ("BAD", "COSMIC", "SATURATED", "SAT_CONNECTED", "SATELLITE",
+                 "EDGE", "CROSSTALK", "ALL", "DISCARD_DEFAULT"):
+        assert getattr(tm, name) == getattr(jm, name), name
+    assert list(tm.BITS.items()) == list(jm.BITS.items())
+
+
+def test_instrument_constants_copy():
+    from blackbox_tpu.config import defaults as jd
+    from blackbox_tpu.config.base import get_par
+    from blackbox_tpu_torch import config as tc
+    assert tc.GAIN == jd.GAIN
+    assert tc.SATLEVEL == jd.SATLEVEL
+    s = jd.ReductionSettings()
+    for tel in ("ML1", "BG2", "BG3", "BG4"):
+        assert tc.get_par(tc.SIGCLIP, tel) == get_par(s.sigclip, tel)
+        assert (tc.get_par(tc.SUBTRACT_MBIAS, tel)
+                == get_par(s.subtract_mbias, tel))
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_comparator_networks_copy(k):
+    from blackbox_tpu.ops import filters as jf
+    from blackbox_tpu_torch.ops import filters as tf
+    assert tf.transposition_pairs(k) == jf.transposition_pairs(k)
+    assert tf.sorted_column_network(k) == jf.sorted_column_network(k)
+    ranks = (k * k // 2,)
+    assert tf.sc_select_ops(k, ranks) == jf.sc_select_ops(k, ranks)
+    # the full-sort order the masked median reads
+    assert tf.sc_select_ops(k, tuple(range(k * k))) == \
+        jf.sc_select_ops(k, tuple(range(k * k)))
+
+
+def test_fast_fft_size_copy():
+    from blackbox_tpu.ops.zogy import fast_fft_size as jfast
+    from blackbox_tpu_torch.ops.satdet import fast_fft_size as tfast
+    for m in (1, 7, 240, 990, 1000, 1584, 10560):
+        assert tfast(m) == jfast(m)
+
+
+def _fields(obj):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _assert_same_context(got, want):
+    """Every field of the JAX context, nested dataclasses included."""
+    assert set(_fields(got)) == set(_fields(want))
+    for name, value in _fields(want).items():
+        mine = getattr(got, name)
+        if dataclasses.is_dataclass(value):
+            assert _fields(mine) == _fields(value), name
+        else:
+            assert mine == value, name
+
+
+def test_from_reference_carries_every_field():
+    from torch_parity import jax_ctx
+    from blackbox_tpu_torch.pipeline.reduce import ReduceContext
+    ref = jax_ctx()
+    _assert_same_context(ReduceContext.from_reference(ref), ref)
+    # changed nested values carry across too
+    ref2 = dataclasses.replace(
+        ref, os_params=dataclasses.replace(ref.os_params, mode="BG",
+                                           hos_poldeg=5),
+        psf_params=dataclasses.replace(ref.psf_params, size=21))
+    _assert_same_context(ReduceContext.from_reference(ref2), ref2)
+
+
+@pytest.mark.parametrize("tel", ["ML1", "BG2"])
+@pytest.mark.parametrize("gname", ["MEERLICHT", "TINY"])
+def test_from_defaults_matches_from_settings(tel, gname):
+    """The port's default context equals the JAX package's
+    ReduceContext.from_settings(ReductionSettings()) (PSF off)."""
+    from blackbox_tpu.config.defaults import ReductionSettings
+    from blackbox_tpu.core import geometry as jg
+    from blackbox_tpu.pipeline.reduce import ReduceContext as JCtx
+    from blackbox_tpu_torch.core import geometry as tg
+    from blackbox_tpu_torch.pipeline.reduce import ReduceContext
+    want = dataclasses.replace(
+        JCtx.from_settings(ReductionSettings(geometry=getattr(jg, gname)),
+                           tel), fit_psf=False)
+    got = ReduceContext.from_defaults(getattr(tg, gname), tel)
+    _assert_same_context(got, want)
+    np.testing.assert_array_equal(got.gains, want.gains)

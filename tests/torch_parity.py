@@ -1,0 +1,71 @@
+"""Shared helpers of the ``test_torch_*`` parity tests (not a test module).
+
+The suite runs under several pytest-xdist workers on one host, so
+torch is pinned to one thread here, once, for every worker that
+imports it.  Inputs are numpy arrays made from a seed and handed to
+both packages; outputs come back as numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+def t(a) -> torch.Tensor:
+    """numpy (or jax) array -> CPU tensor (a copy: jax arrays are
+    read-only)."""
+    return torch.from_numpy(np.array(a))
+
+
+def n(x) -> np.ndarray:
+    """Tensor or jax array -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.numpy()
+    return np.asarray(x)
+
+
+def assert_exact(got, want, what: str = ""):
+    """Bit-for-bit equality (NaN equal to NaN), dtypes included."""
+    got, want = n(got), n(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert got.dtype == want.dtype, (what, got.dtype, want.dtype)
+    np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def assert_close(got, want, rtol: float, atol: float = 0.0, what: str = ""):
+    got, want = n(got), n(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                               err_msg=what)
+
+
+def jax_ctx(**overrides):
+    """The JAX pipeline test context (tests/test_pipeline.py::_ctx) with
+    the PSF stages off, as the port's slice runs."""
+    from test_pipeline import _ctx
+    return dataclasses.replace(_ctx(), fit_psf=False, **overrides)
+
+
+def tiny_frame(seed: int):
+    """A TINY raw science frame from the JAX package's host generator,
+    plus masters and a crosstalk matrix, all numpy.
+
+    Returns (chan, os_vert, os_hori, mbias, mflat, xtalk, truth).
+    """
+    from blackbox_tpu.core.geometry import TINY
+    from blackbox_tpu.synth import make_raw_science
+    rng = np.random.default_rng(seed)
+    raw, truth = make_raw_science(TINY, rng, nstars=40, ncosmics=12,
+                                  trail=True, nsat=2, sky_e=300.0)
+    C = TINY.n_chan
+    chan, osv, osh = (np.ascontiguousarray(a) for a in TINY.split_raw(raw))
+    mflat = np.ascontiguousarray(TINY.disassemble(truth.flat),
+                                 dtype=np.float32)
+    mbias = (0.5 * rng.standard_normal(TINY.chan_shape)).astype(np.float32)
+    xtalk = rng.uniform(-2e-4, 2e-4, (C, C)).astype(np.float32)
+    return chan, osv, osh, mbias, mflat, xtalk, truth
