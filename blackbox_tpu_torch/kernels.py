@@ -26,12 +26,13 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("labelprop.cu", "medians.cu", "gather.cu")
+SOURCES = ("labelprop.cu", "medians.cu", "gather.cu", "fft.cu", "detect.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # (in, out, H, W, steps, big, stream)
     "bbt_label_propagate": (_P, _P, _I, _I, _I, _I, _P),
@@ -41,6 +42,14 @@ _SIGNATURES = {
     #  size, stream)
     "bbt_gather_windows": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                            _I, _I, _P),
+    # (xr, xi, yr, yi, tmp_r, tmp_i, twa_re, twa_im, twb_re, twb_im, w,
+    #  N1, N2, k, L, inverse, scale, stream)
+    "bbt_fft_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _I, _F, _P),
+    # (img, std, excl, taps (host), ntaps, nsigma, absval, iters, H, W,
+    #  seg, count, stream)
+    "bbt_fused_detect": (_P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P, _P,
+                         _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -66,15 +75,38 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     BUILD.mkdir(exist_ok=True)
-    # build under a private name, then rename: a concurrent build never
-    # loads a half-written library
+    # one nvcc per source, all started together, then one link; build
+    # under private names and rename: a concurrent build never loads a
+    # half-written library
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = BUILD / f"{Path(src).stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+               str(CSRC / src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    try:
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -99,6 +131,12 @@ def check(err: int, kernel: str) -> None:
     if err != 0:
         msg = lib().bbt_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err}: {msg}")
+
+
+def host_floats(values) -> ctypes.Array:
+    """A host float32 array of ``values``, for a launcher argument that
+    the launcher copies into its kernel's parameters."""
+    return (ctypes.c_float * len(values))(*values)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -6,17 +6,25 @@ matched filter, thresholded at ``nsigma`` times the local background
 STD, labelled by bounded min-label propagation (CUDA kernel on the
 card), and per-segment moments are reduced over windows around each
 segment's root pixel into a catalog of ``max_sources`` slots.
+
+:func:`fused_detect` is the port of the fused TPU kernel
+``pallas/detect.py``: filter, threshold, exclusion and labels in one
+pass (CUDA kernel ``csrc/detect.cu`` on the card).  As in the JAX
+package it is taken only when ``BBTPU_PALLAS_DETECT=1``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
 
-from blackbox_tpu_torch.ops.labeling import label_components
+from blackbox_tpu_torch import kernels
+from blackbox_tpu_torch.ops.labeling import (_label_propagate_plain,
+                                             label_components)
 from blackbox_tpu_torch.ops.windows import gather_slot_windows
 
 
@@ -84,16 +92,107 @@ def label_segments(det, label_iters: int = 48):
     return torch.where(det, lab, 0), n
 
 
+def pallas_detect_enabled() -> bool:
+    """The JAX package's switch for the fused detection kernel
+    (``BBTPU_PALLAS_DETECT=1``), read at call time."""
+    return os.environ.get("BBTPU_PALLAS_DETECT", "0") == "1"
+
+
 def detect_segments(image_bksub, bkg_std, excl_mask,
-                    params: DetectParams = DetectParams()):
-    """Threshold + label.  Returns (seg (H, W) int32, n_sources)."""
+                    params: DetectParams = DetectParams(),
+                    use_pallas: bool | None = None):
+    """Threshold + label.  Returns (seg (H, W) int32, n_sources).
+
+    ``use_pallas=None`` takes the fused kernel (:func:`fused_detect`)
+    under the JAX package's rule: ``BBTPU_PALLAS_DETECT=1``,
+    ``label_iters <= 56``, a frame of at least 512 x 512, and (in place
+    of "the backend is a TPU") the image on a CUDA device.
+    """
     p = params
+    H, W = image_bksub.shape
+    if use_pallas is None:
+        use_pallas = (image_bksub.device.type == "cuda"
+                      and p.label_iters <= 56 and H >= 512 and W >= 512
+                      and pallas_detect_enabled())
+    if use_pallas:
+        return fused_detect(image_bksub, bkg_std, excl_mask,
+                            gaussian_taps(p.fwhm_filter), p.nsigma,
+                            iters=p.label_iters)
     filt, _ = matched_filter(image_bksub, p.fwhm_filter)
     # compared against nsigma times the UNFILTERED background RMS
     det = filt > p.nsigma * torch.clamp(bkg_std, min=1e-6)
     if excl_mask is not None:
         det = det & ~excl_mask
     return label_segments(det, p.label_iters)
+
+
+def _fused_detect_plain(image, bkg_std, excl, taps, nsigma: float,
+                        iters: int, absval: bool):
+    """Plain version of :func:`fused_detect`: the unfused chain (filter,
+    threshold, exclusion, ``iters`` plain label steps, root count)."""
+    H, W = image.shape
+    x = image
+    if taps is not None:
+        x = _conv1d(_conv1d(x, taps, 0), taps, 1)
+    if absval:
+        x = torch.abs(x)
+    if bkg_std is not None:
+        det = x > nsigma * torch.clamp(bkg_std, min=1e-6)
+    else:
+        det = x > nsigma
+    if excl is not None:
+        det = det & ~excl.to(torch.bool)
+    idx = torch.arange(1, H * W + 1, dtype=torch.int32,
+                       device=image.device).reshape(H, W)
+    lab = _label_propagate_plain(torch.where(det, idx, H * W + 2), iters)
+    n = torch.sum(det & (lab == idx), dtype=torch.int32)
+    return torch.where(det, lab, 0), n
+
+
+def fused_detect(image, bkg_std, excl, taps, nsigma: float,
+                 iters: int = 32, absval: bool = False):
+    """Matched filter + threshold + connected-component labels, fused.
+
+    image   : (H, W) f32 map to detect on.
+    bkg_std : (H, W) f32 or None — threshold is
+              ``nsigma * max(bkg_std, 1e-6)`` (None: scalar ``nsigma``).
+    excl    : (H, W) bool mask or None — True pixels excluded.
+    taps    : tuple of float filter taps (odd length), or None.
+    absval  : threshold ``|image|`` (transient Scorr detection).
+
+    Returns (seg (H, W) int32 — 0 background, root flat index + 1
+    labels — and n, the int32 root count as a 0-d device tensor),
+    identical to :func:`label_segments` on the thresholded map.  CPU
+    tensors take the plain version; CUDA tensors run ``csrc/detect.cu``.
+    """
+    if image.device.type == "cpu":
+        return _fused_detect_plain(image, bkg_std, excl, taps, nsigma,
+                                   iters, absval)
+    H, W = image.shape
+    img = image.to(torch.float32).contiguous()
+    std = (None if bkg_std is None
+           else bkg_std.to(torch.float32).contiguous())
+    exc = None if excl is None else excl.to(torch.uint8).contiguous()
+    ops = [t for t in (img, std, exc) if t is not None]
+    kernels.require_cuda("fused_detect", *ops)
+    if any(t.shape != (H, W) for t in ops):
+        raise ValueError("fused_detect: image, std and excl must share "
+                         "one (H, W) shape")
+    seg = torch.empty((H, W), dtype=torch.int32, device=img.device)
+    count = torch.zeros((), dtype=torch.int32, device=img.device)
+    ntaps = 0 if taps is None else len(taps)
+    taps_host = kernels.host_floats(taps) if ntaps else None
+    with torch.cuda.device(img.device):
+        kernels.check(kernels.lib().bbt_fused_detect(
+            img.data_ptr(), None if std is None else std.data_ptr(),
+            None if exc is None else exc.data_ptr(), taps_host, ntaps,
+            float(nsigma), int(absval), int(iters), H, W, seg.data_ptr(),
+            count.data_ptr(), kernels.stream_of(img)), "fused_detect")
+    fused_detect.launches += 1
+    return seg, count
+
+
+fused_detect.launches = 0
 
 
 def segment_roots(seg, max_sources: int):

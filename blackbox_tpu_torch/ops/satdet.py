@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from blackbox_tpu_torch.ops.background import background_mesh, mini2back
 from blackbox_tpu_torch.ops.stats import median
+from blackbox_tpu_torch.ops.zogy import fast_fft_size
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,20 +36,6 @@ class SatDetParams:
     trail_halfwidth: int = 5     # half-width of the rasterised trail mask
     max_trails: int = 8          # static cap on detected trails
     band_widths: tuple = (1, 5, 15)   # offset-band integration widths
-
-
-def fast_fft_size(n: int) -> int:
-    """Smallest m >= n of the form 2^a·{1,3,5,7,11,21} (copy of
-    :func:`blackbox_tpu.ops.zogy.fast_fft_size`; the size changes the
-    Radon grid, so it must match)."""
-    best = None
-    for m in (1, 3, 5, 7, 11, 21):
-        c = m
-        while c < n:
-            c <<= 1
-        if best is None or c < best:
-            best = c
-    return best
 
 
 def _jmod(x, n: float):

@@ -40,6 +40,22 @@ def nanmedian(x: torch.Tensor) -> torch.Tensor:
     return masked_median(flat, torch.isnan(flat), axis=0)
 
 
+def nanmean(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmean`` over all elements (NaN if all are NaN)."""
+    flat = x.reshape(-1)
+    ok = ~torch.isnan(flat)
+    return torch.sum(torch.where(ok, flat, 0.0)) / torch.sum(ok)
+
+
+def nanstd(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanstd`` (ddof 0) over all elements (NaN if all are NaN)."""
+    flat = x.reshape(-1)
+    ok = ~torch.isnan(flat)
+    m = nanmean(flat)
+    return torch.sqrt(torch.sum(torch.where(ok, (flat - m) ** 2, 0.0))
+                      / torch.sum(ok))
+
+
 def masked_mean_std(x, mask=None, axis=None, ddof: int = 0):
     """Mean and std of unmasked elements (mask True = excluded)."""
     if mask is None:

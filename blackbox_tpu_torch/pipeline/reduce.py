@@ -3,15 +3,17 @@ mask + catalog (port of :mod:`blackbox_tpu.pipeline.reduce`).
 
 Step order follows the JAX package: gain -> overscan -> master bias ->
 mask -> flat -> L.A.Cosmic -> crosstalk -> satellite trails -> edge
-fill -> background -> detection -> moments -> aperture photometry.  The
-functions run eagerly on the tensors' device; the three hand-written
-CUDA kernels (label propagation, k x k medians, window gathers) are
-reached through their ``ops`` wrappers.
+fill -> background -> detection -> moments -> aperture photometry ->
+PSF fit and PSF photometry.  The functions run eagerly on the tensors'
+device; the hand-written CUDA kernels (label propagation, k x k
+medians, window gathers, and the fused detection under
+``BBTPU_PALLAS_DETECT=1``) are reached through their ``ops`` wrappers.
+The entry point :func:`make_reduce_fn` moves its inputs to the card
+unless it is asked for another device.
 
 Not in this slice (each raises NotImplementedError where asked for):
-the PSF fit and PSF photometry (``fit_psf``), the non-linearity
-correction (``correct_nonlin`` with coefficients) and the tiled
-satellite-segment mode (``detect_sat_segments``).
+the non-linearity correction (``correct_nonlin`` with coefficients) and
+the tiled satellite-segment mode (``detect_sat_segments``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from blackbox_tpu_torch.ops.masking import build_mask
 from blackbox_tpu_torch.ops.morphology import fill_holes
 from blackbox_tpu_torch.ops.overscan import OverscanParams, overscan_correct
 from blackbox_tpu_torch.ops.photometry import aperture_photometry
-from blackbox_tpu_torch.ops.psf import PSFParams
+from blackbox_tpu_torch.ops.psf import (PSFParams, build_psf, psf_at,
+                                        psf_fwhm, psf_photometry)
 from blackbox_tpu_torch.ops.satdet import SatDetParams, detect_trails
 from blackbox_tpu_torch.ops.stats import masked_median, median
 from blackbox_tpu_torch.ops.xtalk import xtalk_correct, xtalk_correct_mosaic
@@ -59,7 +62,7 @@ class ReduceContext:
     sat_params: SatDetParams = SatDetParams()
     det_params: DetectParams = DetectParams()
     psf_params: PSFParams = PSFParams()
-    fit_psf: bool = False           # True is not ported (the JAX default)
+    fit_psf: bool = True
     bkg_boxsize: int = 256
     bkg_filtersize: int = 3
     bkg_nsigma: float = 3.0
@@ -233,10 +236,7 @@ def extract_catalog(ctx: ReduceContext, sci, mask_m):
 
 def catalog_tail(ctx: ReduceContext, sci, sub, bkg, bstd, seg, n, mesh,
                  stdm):
-    """Per-source stages after segmentation: moments and photometry."""
-    if ctx.fit_psf:
-        raise NotImplementedError("the PSF stages are not ported "
-                                  "(ReduceContext.fit_psf must be False)")
+    """Per-source stages after segmentation: moments, photometry, PSF."""
     cat = segment_catalog(sub, bstd, seg, n, ctx.det_params)
     cat.update(moments_shape(cat))
     flux, fluxerr = aperture_photometry(sub, bstd, cat["x"], cat["y"],
@@ -268,33 +268,59 @@ def catalog_tail(ctx: ReduceContext, sci, sub, bkg, bstd, seg, n, mesh,
         "bkg_median": median(mesh),
         "bkg_std": median(stdm),
     }
-    return {"bkg": bkg, "bkg_std": bstd, "cat": cat, "stats": stats,
-            "seg_nsources": n}
+    out = {"bkg": bkg, "bkg_std": bstd, "cat": cat, "stats": stats,
+           "seg_nsources": n}
+
+    # spatially-varying PSF model + optimal PSF fluxes
+    if ctx.fit_psf:
+        model = build_psf(sub, bstd, cat, sci.shape, ctx.psf_params,
+                          n_active=n)
+        fpsf, fpsf_err = psf_photometry(sub, bstd, model, cat["x"],
+                                        cat["y"], n_active=n)
+        cat["flux_psf"] = fpsf
+        cat["fluxerr_psf"] = fpsf_err
+        cen = psf_at(model, 0.5 * sci.shape[1], 0.5 * sci.shape[0])
+        stats["psf_nstars"] = model.nstars
+        stats["psf_chi2"] = model.chi2
+        stats["psf_fwhm_pix"] = psf_fwhm(cen[None])[0]
+        out["psf"] = model
+    return out
 
 
-def make_reduce_fn(ctx: ReduceContext):
+def to_device(x, device):
+    """``x`` with every array in it (numpy or tensor, inside dicts,
+    tuples and lists too) as a tensor on ``device``; None and Python
+    scalars pass through."""
+    if x is None or isinstance(x, (bool, int, float)):
+        return x
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, device) for v in x)
+    return torch.as_tensor(x, device=device)
+
+
+def make_reduce_fn(ctx: ReduceContext, device="cuda"):
     """Build the end-to-end reduce function.
 
     The returned callable takes ``(chan_data, os_vert, os_hori, mbias,
-    mflat, bpm, xtalk_coeffs)``: the raw stacks as tensors on the device
-    to run on, the calibration arrays as tensors or numpy arrays (or
-    None).  It returns ``{"image", "mask", "stats", "bkg", "bkg_std",
-    "cat", "seg_nsources"}``.
+    mflat, bpm, xtalk_coeffs)`` as tensors or numpy arrays (the
+    calibration arrays may be None), moves every one to ``device`` (the
+    card unless the caller asks for another, e.g. ``device="cpu"``),
+    and returns ``{"image", "mask", "stats", "bkg", "bkg_std", "cat",
+    "seg_nsources"}`` plus ``"psf"`` (a :class:`PSFModel`) when
+    ``ctx.fit_psf``.
     """
-    if ctx.fit_psf:
-        raise NotImplementedError("the PSF stages are not ported "
-                                  "(ReduceContext.fit_psf must be False)")
+    dev = torch.device(device)
 
     @torch.inference_mode()
     def fn(chan_data, os_vert, os_hori, mbias, mflat, bpm, xtalk_coeffs):
-        dev = chan_data.device
-
-        def on_dev(a):
-            return None if a is None else torch.as_tensor(a, device=dev)
-
+        chan_data, os_vert, os_hori, mbias, mflat, bpm, xtalk_coeffs = (
+            to_device((chan_data, os_vert, os_hori, mbias, mflat, bpm,
+                       xtalk_coeffs), dev))
         sci, mask_m, stats = calibrate_detector(
-            ctx, chan_data, os_vert, os_hori, on_dev(mbias), on_dev(mflat),
-            on_dev(bpm), on_dev(xtalk_coeffs))
+            ctx, chan_data, os_vert, os_hori, mbias, mflat, bpm,
+            xtalk_coeffs)
         ext = extract_catalog(ctx, sci, mask_m)
         out = {"image": sci, "mask": mask_m,
                "stats": {**stats, **ext.pop("stats")}}

@@ -8,24 +8,39 @@ Phases, each printing its own lines:
 1. Device: the card's name and power limit (``nvidia-smi``), then the
    CUDA kernels are built from ``blackbox_tpu_torch/csrc``.
 2. Kernels against their plain PyTorch versions on the card, bit for
-   bit, at the main path's shapes: label propagation on a 10560² star
-   field at 32 steps, the k = 3, 5, 7 medians of a 10560² frame, and
-   20000 32² + 1024 96² window gathers from an f32 and an int32 frame
-   with n_active < N.  Both times come from CUDA events.
-3. The main path: the reduction (``make_reduce_fn``, production
-   configuration, ``fit_psf=False``) of a TINY frame on the card held
-   against the same frame reduced on the CPU with the plain versions,
-   then of three full MeerLICHT frames made on the card from three
-   seeds.  The kernels' launch counters are zeroed just before the
-   full frames and must all have moved after them.
-4. One JSON line with the kernels' counts and times, then the last
+   bit, at the main paths' shapes: label propagation (K1) on a 10560²
+   star field at 32 steps, the k = 3, 5, 7 medians (K2) of a 10560²
+   frame, 20000 32² + 1024 96² window gathers (K4) from an f32 and an
+   int32 frame with n_active < N, the split-real FFT (K6) of a
+   10752 x 10752 pair forward and inverse, and the fused detection (K5)
+   in its detection form (the star field, 9 taps, a std map, an
+   exclusion, 32 steps) and its transient form (|x|, no taps, 48
+   steps).  Both times come from CUDA events; each kernel's bound is
+   worked out from the bytes it must move and the operations it must
+   do at those shapes (``bound``).
+3. The reduction (``make_reduce_fn``, production configuration with the
+   PSF stages on) of a TINY frame on the card held against the same
+   frame reduced on the CPU with the plain versions, then of three full
+   MeerLICHT frames made on the card from three seeds.
+4. The science path (``make_science_programs``): the reference products
+   from seed 12345, then a timed scene (bench.py's registration: 0.05
+   deg rotation, offset (3.2, -2.7), 8 strips) of one warm-up and two
+   raw -> transient frames, and a gated scene (the reference rolled by
+   the integer shift (3, -2), 20 PSF-shaped transients injected into
+   the new raw frame) run without and then with BBTPU_PALLAS_DETECT=1,
+   which must give the same catalog bit for bit.
+5. One JSON line with the kernels' counts and times, then the last
    line ``{"ok": true, "device": {...}}``.
 
-Any failure raises: the script then exits non-zero and prints no ok
-line.  It needs a CUDA device and the repository's port package.
+The launch counters are zeroed just before each of phases 3 and 4 and
+read just after it: every kernel of a phase's path must have moved, and
+K6 must show 6 launches per science frame.  Any failure raises: the
+script then exits non-zero and prints no ok line.  It needs a CUDA
+device and the repository's port package.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -35,6 +50,13 @@ import torch
 
 SEEDS = (12345, 12346, 12347)
 IMG_ATOL_REL = 1e-5     # image atol per e- of overscan level (see tests)
+# one H100 SXM, NVIDIA's data sheet: HBM3 rate and float32 rate outside
+# the tensor cores; int32 runs on half as many lanes per SM as float32
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+I32_OPS_PER_S = 33.5e12
+FRATIO = 1.3            # the reference is made 1.3x deeper (bench.py)
+NTRANS = 20             # transients injected into the gated scene
 
 
 def card_label() -> str:
@@ -57,6 +79,22 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
+    """The least time the card could take for the work, in ms, and what
+    bounds it: the bytes moved at the HBM rate against the operations
+    at their peak rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32_ops / F32_OPS_PER_S + i32_ops / I32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
+          library_ms=None):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -111,34 +149,46 @@ def check_kernels(card):
                       labeling._label_propagate_plain(lab0, 32))
     ms = cuda_ms(lambda: labeling.label_propagate(lab0, 32))
     plain = cuda_ms(lambda: labeling._label_propagate_plain(lab0, 32))
-    print(f"K1 label_propagate {H}x{W} 32 steps ({float(mask.float().mean()):.4f}"
+    nfg = int(mask.sum())
+    # int32 labels in and out; 8 mins a step for each foreground pixel
+    bnd = bound(8.0 * H * W, i32_ops=8.0 * 32 * nfg)
+    print(f"K1 label_propagate {H}x{W} 32 steps ({nfg / (H * W):.4f}"
           f" of pixels set): bit-exact, kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms [{card}]")
-    results.append(dict(name="label_propagate",
-                        source="blackbox_tpu_torch/csrc/labelprop.cu",
-                        replaces="blackbox_tpu/pallas/labelprop.py:52",
-                        max_abs_err=err, ms=ms, plain_ms=plain))
+          f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
+    results.append(entry("label_propagate",
+                         "blackbox_tpu_torch/csrc/labelprop.cu",
+                         "blackbox_tpu/pallas/labelprop.py:52", err, ms,
+                         plain, *bnd))
     seg = torch.where(mask, labeling.label_propagate(lab0, 32), 0)
     del lab0, idx, mask
 
     # K2: k = 3, 5, 7; the entry's times are one detection round's mix
     # (one 3x3, two 5x5, one 7x7 median)
-    t, tp, err = {}, {}, 0.0
+    t, tp, tb, err = {}, {}, {}, 0.0
     for k in filters.MEDIAN_KS:
         err = max(err, max_abs_err(filters.median_filter(img, k),
                                    filters._median_plain(img, k, 264)))
         t[k] = cuda_ms(lambda: filters.median_filter(img, k))
         tp[k] = cuda_ms(lambda: filters._median_plain(img, k, 264), reps=1)
+        # per pixel: one column sort (a min and a max per comparator)
+        # and the pruned merge network; f32 in and out
+        merge, _ = filters.sc_select_ops(k, (k * k // 2,))
+        per_px = (2 * len(filters.transposition_pairs(k))
+                  + sum(2 if op[0] == "ce" else 1 for op in merge))
+        tb[k] = bound(8.0 * H * W, f32_ops=float(per_px) * H * W)
         print(f"K2 median_filter k={k} {H}x{W}: bit-exact, kernel "
-              f"{t[k]:.3f} ms, plain {tp[k]:.3f} ms [{card}]")
-    results.append(dict(name="median_filter",
-                        source="blackbox_tpu_torch/csrc/medians.cu",
-                        replaces="blackbox_tpu/pallas/medians.py:48",
-                        max_abs_err=err, ms=t[3] + 2 * t[5] + t[7],
-                        plain_ms=tp[3] + 2 * tp[5] + tp[7]))
+              f"{t[k]:.3f} ms, plain {tp[k]:.3f} ms, bound {tb[k][0]:.3f} "
+              f"ms ({tb[k][1]}) [{card}]")
+    mix = (3, 5, 5, 7)
+    results.append(entry(
+        "median_filter", "blackbox_tpu_torch/csrc/medians.cu",
+        "blackbox_tpu/pallas/medians.py:48", err, sum(t[k] for k in mix),
+        sum(tp[k] for k in mix), sum(tb[k][0] for k in mix),
+        "operations" if any(tb[k][1] == "operations" for k in mix)
+        else "bytes"))
 
     # K4: the catalog's small and big window gathers, n_active < N
-    ms = plain = err = 0.0
+    ms = plain = err = nbytes = 0.0
     for N, size in ((20000, 32), (1024, 96)):
         y0 = torch.randint(-20, H + 20, (N,), generator=gen, device="cuda",
                            dtype=torch.int32)
@@ -154,14 +204,104 @@ def check_kernels(card):
         tpl = cuda_ms(lambda: windows._gather_plain((img, seg), y0, x0,
                                                     size, nact))
         ms, plain = ms + tk, plain + tpl
+        # 8 B a window pixel (f32 + int32): read for the live slots,
+        # written for every slot
+        nbytes += 8.0 * size * size * (int(nact) + N)
         print(f"K4 gather_slot_windows {N}x{size}^2 (f32 + int32, "
               f"n_active {int(nact)}): bit-exact, kernel {tk:.3f} ms, "
               f"plain {tpl:.3f} ms [{card}]")
-    results.append(dict(name="gather_slot_windows",
-                        source="blackbox_tpu_torch/csrc/gather.cu",
-                        replaces="blackbox_tpu/pallas/gather.py:61",
-                        max_abs_err=err, ms=ms, plain_ms=plain))
+    results.append(entry("gather_slot_windows",
+                         "blackbox_tpu_torch/csrc/gather.cu",
+                         "blackbox_tpu/pallas/gather.py:61", err, ms, plain,
+                         *bound(nbytes)))
+    results.append(check_fft(card))
+    results.append(check_detect(card, img))
     return results
+
+
+def check_fft(card):
+    """K6 at the science path's shape: one (10752, 10752) column pass
+    forward and one inverse with scale 1/N (the entry's times are the
+    mean of the two), against the plain version and torch.fft."""
+    from blackbox_tpu_torch.ops import fft
+
+    N = L = 10752
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    xr = torch.randn((N, L), generator=gen, device="cuda")
+    xi = torch.randn((N, L), generator=gen, device="cuda")
+    N1, N2, k = fft.plan(N)
+    ms, plain, err = [], [], 0.0
+    for inverse in (False, True):
+        s = 1.0 / N if inverse else 1.0
+        got = fft.fft_cols_split(xr, xi, inverse, s)
+        ref = fft._fft_cols_plain(xr, xi, inverse, s)
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+        del got, ref
+        ms.append(cuda_ms(lambda: fft.fft_cols_split(xr, xi, inverse, s)))
+        plain.append(cuda_ms(lambda: fft._fft_cols_plain(xr, xi, inverse,
+                                                          s), reps=1))
+        print(f"K6 fft_cols_split {N}x{L} (N1 {N1}, N2 {N2}) "
+              f"{'inverse' if inverse else 'forward'}: bit-exact, kernel "
+              f"{ms[-1]:.3f} ms, plain {plain[-1]:.3f} ms [{card}]")
+    lib = cuda_ms(lambda: torch.fft.fft(torch.complex(xr, xi), dim=0))
+    # two planes in, two out; step A: N2 complex multiply-adds and a
+    # twiddle per point, then k radix-2 stages of an add/sub and a
+    # twiddle per point
+    pts = float(N) * L
+    ops = pts * (8.0 * N2 + 6.0) + pts * k * 8.0
+    bnd = bound(16.0 * pts, f32_ops=ops)
+    print(f"K6 library torch.fft.fft of the same {N}x{L} pair: {lib:.3f} ms"
+          f"; bound {bnd[0]:.3f} ms ({bnd[1]}) per pass [{card}]")
+    return entry("fft_cols_split", "blackbox_tpu_torch/csrc/fft.cu",
+                 "blackbox_tpu/pallas/fft.py:164", err, sum(ms) / 2,
+                 sum(plain) / 2, *bnd, library_ms=lib)
+
+
+def check_detect(card, img):
+    """K5 in both forms at 10560²: the detection form on the star field
+    and the transient form on a Scorr-like map (the entry's times are
+    the sum of one of each, as a science frame runs them under
+    BBTPU_PALLAS_DETECT=1)."""
+    from blackbox_tpu_torch.ops import detection
+
+    H, W = img.shape
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sub = img - 300.0
+    std = np.sqrt(300.0) * (1.0 + 0.1 * torch.rand((H, W), generator=gen,
+                                                    device="cuda"))
+    excl = torch.rand((H, W), generator=gen, device="cuda") > 0.999
+    excl[:64] = True
+    taps = detection.gaussian_taps(3.0)
+    scorr = sub / np.sqrt(300.0)
+    forms = {"detection": ((sub, std, excl, taps, 1.5, 32, False),
+                           13.0, 2 * 2 * len(taps)),
+             "transient": ((scorr, None, excl, None, 6.0, 48, True),
+                           9.0, 0)}
+    ms = plain = bnd_ms = err = 0.0
+    bound_by = "bytes"
+    for form, (args, bpp, flops) in forms.items():
+        got = detection.fused_detect(*args[:5], iters=args[5],
+                                     absval=args[6])
+        ref = detection._fused_detect_plain(*args)
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+        nfg = int((got[0] > 0).sum())
+        del got, ref
+        tk = cuda_ms(lambda: detection.fused_detect(*args[:5], iters=args[5],
+                                                    absval=args[6]))
+        tpl = cuda_ms(lambda: detection._fused_detect_plain(*args), reps=1)
+        # bytes a pixel: the image, std (f32) and exclusion (int8) read
+        # once, the int32 segment map written once; the filter's
+        # multiply-adds on every pixel, 8 mins a step on the detections
+        b = bound(bpp * H * W, f32_ops=flops * H * W,
+                  i32_ops=8.0 * args[5] * nfg)
+        ms, plain, bnd_ms = ms + tk, plain + tpl, bnd_ms + b[0]
+        bound_by = b[1] if b[1] == "operations" else bound_by
+        print(f"K5 fused_detect {form} form {H}x{W} ({args[5]} steps, "
+              f"{nfg} pixels detected): bit-exact, kernel {tk:.3f} ms, "
+              f"plain {tpl:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) [{card}]")
+    return entry("fused_detect", "blackbox_tpu_torch/csrc/detect.cu",
+                 "blackbox_tpu/pallas/detect.py:64", err, ms, plain, bnd_ms,
+                 bound_by)
 
 
 def check_outputs(out, ctx, label):
@@ -175,9 +315,13 @@ def check_outputs(out, ctx, label):
         if not bool(torch.isfinite(v.double()).all()):
             raise AssertionError(f"{label}: stat {k} is not finite")
     valid = out["cat"]["valid"]
-    for k in ("x", "y", "flux_ap", "fluxerr_ap", "fwhm"):
+    for k in ("x", "y", "flux_ap", "fluxerr_ap", "fwhm", "flux_psf",
+              "fluxerr_psf"):
         if not bool(torch.isfinite(out["cat"][k][valid]).all()):
             raise AssertionError(f"{label}: catalog {k} not finite")
+    if ctx.geom.red_shape[0] > 1000 and int(out["stats"]["psf_nstars"]) < 20:
+        raise AssertionError(f"{label}: the PSF fit used "
+                             f"{int(out['stats']['psf_nstars'])} stars")
 
 
 def check_tiny(reduce_ctx_for, card):
@@ -196,10 +340,12 @@ def check_tiny(reduce_ctx_for, card):
     mflat = (1.0 + 0.02 * torch.randn((C, ych, xch), generator=gen)).numpy()
     xtalk = np.random.default_rng(0).uniform(-2e-4, 2e-4, (C, C)).astype(
         np.float32)
-    fn = make_reduce_fn(ctx)
-    cpu = fn(chan, osv, osh, None, mflat, None, xtalk)
-    gpu = fn(chan.cuda(), osv.cuda(), osh.cuda(), None, mflat, None, xtalk)
+    cpu = make_reduce_fn(ctx, device="cpu")(chan, osv, osh, None, mflat,
+                                            None, xtalk)
+    gpu = make_reduce_fn(ctx)(chan, osv, osh, None, mflat, None, xtalk)
     torch.cuda.synchronize()
+    if gpu["image"].device.type != "cuda":
+        raise AssertionError("TINY: make_reduce_fn did not run on the card")
     check_outputs(gpu, ctx, "TINY")
     for k in ("mask", "seg_nsources"):
         if not torch.equal(cpu[k], gpu[k].cpu()):
@@ -218,6 +364,252 @@ def check_tiny(reduce_ctx_for, card):
           f" e- [{card}]")
 
 
+def counters():
+    """The launch-counted wrappers, one per kernel, by JSON name."""
+    from blackbox_tpu_torch.ops import detection, fft, filters, labeling
+    from blackbox_tpu_torch.ops import windows
+    return {"label_propagate": labeling.label_propagate,
+            "median_filter": filters.median_filter,
+            "gather_slot_windows": windows.gather_slot_windows,
+            "fft_cols_split": fft.fft_cols_split,
+            "fused_detect": detection.fused_detect}
+
+
+def zero_counts():
+    for c in counters().values():
+        c.launches = 0
+
+
+def read_counts(label, card, needed):
+    """The counts of the path just run; every kernel in ``needed`` must
+    have been launched."""
+    counts = {name: c.launches for name, c in counters().items()}
+    print(f"{label} launches {counts} [{card}]")
+    for name in needed:
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched on {label}")
+    return counts
+
+
+def reduce_phase(ctx, card, mbias, mflat, xtalk):
+    """Phase 3: three full MeerLICHT frames through make_reduce_fn."""
+    from blackbox_tpu_torch.pipeline.reduce import make_reduce_fn
+    from blackbox_tpu_torch.synth.device import make_science_device
+
+    geom = ctx.geom
+    fn = make_reduce_fn(ctx)
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = []
+    for i, seed in enumerate(SEEDS):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        chan, osv, osh, _ = make_science_device(
+            gen, geom, nstars=4000, ncosmics=800, trail=True, nsat=20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(chan, osv, osh, mbias, mflat, None, xtalk)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_outputs(out, ctx, f"frame {i}")
+        st = out["stats"]
+        nobj, ncr, nsat = (int(st["nobjects"]), int(st["ncosmics"]),
+                           int(st["nsats"]))
+        fwhm = float(st["psf_fwhm_pix"])
+        print(f"frame {i} (seed {seed}{', warm-up' if i == 0 else ''}): "
+              f"{ms:.1f} ms, nobjects {nobj}, ncosmics {ncr}, nsats {nsat}, "
+              f"seeing {float(st['s_seeing_pix']):.2f} px, PSF "
+              f"{int(st['psf_nstars'])} stars, FWHM {fwhm:.2f} px [{card}]")
+        if not 3000 <= nobj <= 5000:
+            raise AssertionError(f"frame {i}: nobjects {nobj} outside "
+                                 "3000..5000 (4020 sources injected)")
+        if ncr <= 0 or nsat < 1:
+            raise AssertionError(f"frame {i}: ncosmics {ncr}, nsats {nsat}")
+        if not np.isfinite(fwhm):
+            raise AssertionError(f"frame {i}: PSF FWHM {fwhm}")
+        frame_ms.append(ms)
+        del out, chan, osv, osh
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = frame_ms[1:]
+    print(f"raw -> catalog: {sum(steady) / len(steady):.1f} ms/frame steady "
+          f"(frames {', '.join(f'{m:.1f}' for m in steady)} ms after a "
+          f"{frame_ms[0]:.1f} ms warm-up), peak memory {peak_gib:.2f} GiB "
+          f"[{card}]")
+
+
+def reference_products(ctx, front, chan, args):
+    """The ref side, as bench.py builds it: the reduced frame scaled by
+    FRATIO, its PSF stamp and its catalog."""
+    from blackbox_tpu_torch.ops.stats import median
+    f = front(chan, *args)
+    cat = f["cat"]
+    return dict(sub=f["sub"] * FRATIO, std=f["bkg_std"] * FRATIO,
+                mask=f["mask"], psf=f["psf_centre"],
+                sr=median(f["bkg_std"]) * FRATIO,
+                cat={"x": cat["x"], "y": cat["y"],
+                     "flux": cat["flux_psf"] * FRATIO,
+                     "fluxerr": cat["fluxerr_psf"] * FRATIO,
+                     "valid": cat["valid"]})
+
+
+def inject_transients(geom, ctx, chan, mflat):
+    """NTRANS Moffat transients (the frame's own PSF, 3e4 e-) added to
+    the raw channel stacks through the flat and the gains."""
+    from blackbox_tpu_torch.synth.device import moffat_kernel
+    H, W = geom.red_shape
+    rng = np.random.default_rng(7)
+    edge = min(300, H // 6)
+    xs = rng.uniform(edge, W - edge, NTRANS)
+    ys = rng.uniform(edge, H - edge, NTRANS)
+    delta = torch.zeros((H, W), device="cuda")
+    delta[torch.as_tensor(ys.astype(np.int64)),
+          torch.as_tensor(xs.astype(np.int64))] = 3.0e4
+    trans_e = torch.fft.irfft2(torch.fft.rfft2(delta) * torch.fft.rfft2(
+        moffat_kernel((H, W), 3.0, device="cuda")), s=(H, W))
+    gain = torch.tensor(ctx.gains, device="cuda")
+    chan_new = chan + (geom.disassemble(trans_e) * mflat
+                       / gain[:, None, None])
+    return chan_new, np.floor(xs), np.floor(ys)
+
+
+def science_phase(ctx, card, mbias, mflat, xtalk):
+    """Phase 4: raw -> transient catalog through make_science_programs.
+    Returns the number of science frames run."""
+    from blackbox_tpu_torch.ops.warp import grid_shift_ranges
+    from blackbox_tpu_torch.pipeline.subtract import make_science_programs
+    from blackbox_tpu_torch.synth.device import make_science_device
+
+    geom = ctx.geom
+    H, W = geom.red_shape
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[0])
+    chan, osv, osh, _ = make_science_device(gen, geom, nstars=4000,
+                                            ncosmics=800, trail=True,
+                                            nsat=20)
+    args = (osv, osh, mbias, mflat, None)
+    front, _ = make_science_programs(ctx, xtalk)
+    ref = reference_products(ctx, front, chan, args)
+    nframes = 0
+
+    # timed scene: bench.py's registration, ref_cat mapped the same way
+    th = np.deg2rad(0.05)
+    ct, st = np.cos(th), np.sin(th)
+    cy, cx = 0.5 * H, 0.5 * W
+    offx, offy, step = 3.2, -2.7, 32
+    gy = np.arange(0, H + step, step, np.float64)
+    gx = np.arange(0, W + step, step, np.float64)
+    gyy, gxx = np.meshgrid(gy - cy, gx - cx, indexing="ij")
+    sx = (cx + ct * gxx + st * gyy + offx).astype(np.float32)
+    sy = (cy - st * gxx + ct * gyy + offy).astype(np.float32)
+    rx = ref["cat"]["x"].double() - cx - offx
+    ry = ref["cat"]["y"].double() - cy - offy
+    cat_t = dict(ref["cat"], x=(cx + ct * rx - st * ry).float(),
+                 y=(cy + st * rx + ct * ry).float())
+    front, back = make_science_programs(
+        ctx, xtalk, remap_ranges=grid_shift_ranges(sy, sx, step=step,
+                                                   blocks=8),
+        remap_step=step)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = front(chan, *args)
+        b = back(f["sub"], f["bkg_std"], f["mask"], f["psf_centre"],
+                 f["cat"], f["stats"]["bkg_std"], ref["sub"], ref["std"],
+                 ref["mask"], (sy, sx), ref["psf"], ref["sr"], cat_t)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        nframes += 1
+        ts = b["trans_stats"]
+        print(f"science frame {i}{' (warm-up)' if i == 0 else ''}: "
+              f"{times[-1]:.1f} ms raw -> transient catalog, z_fratio "
+              f"{float(ts['z_fratio']):.4f}, z_nmatch {int(ts['z_nmatch'])},"
+              f" t_ntrans {int(ts['t_ntrans'])} [{card}]")
+        del f, b
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"raw -> transient catalog: {sum(times[1:]) / 2:.1f} ms/frame "
+          f"steady (frames {times[1]:.1f}, {times[2]:.1f} ms after a "
+          f"{times[0]:.1f} ms warm-up), peak memory {peak_gib:.2f} GiB "
+          f"[{card}]")
+
+    # gated scene: the ref rolled by an integer shift, transients in
+    dy, dx = 3, -2
+    roll = lambda a: torch.roll(a, (dy, dx), (0, 1))  # noqa: E731
+    sy = np.broadcast_to(gy[:, None] + dy, (len(gy), len(gx))).astype(
+        np.float32)
+    sx = np.broadcast_to(gx[None, :] + dx, (len(gy), len(gx))).astype(
+        np.float32)
+    # the ref catalog is measured on the unrolled frame, which is the new
+    # frame's grid: its positions need no mapping
+    front, back = make_science_programs(
+        ctx, xtalk, remap_ranges=grid_shift_ranges(sy, sx, step=step),
+        remap_step=step)
+    chan_new, tx, ty = inject_transients(geom, ctx, chan, mflat)
+    del chan
+    ref_g = (roll(ref["sub"]), roll(ref["std"]), roll(ref["mask"]), (sy, sx),
+             ref["psf"], ref["sr"], ref["cat"])
+    del ref
+
+    def gated():
+        f = front(chan_new, *args)
+        b = back(f["sub"], f["bkg_std"], f["mask"], f["psf_centre"],
+                 f["cat"], f["stats"]["bkg_std"], *ref_g)
+        return f["seg_nsources"], b
+
+    n0, b0 = gated()
+    nframes += 1
+    check_gated(b0, tx, ty, card)
+    from blackbox_tpu_torch.ops import detection
+    k5 = detection.fused_detect.launches
+    os.environ["BBTPU_PALLAS_DETECT"] = "1"
+    try:
+        n1, b1 = gated()
+    finally:
+        del os.environ["BBTPU_PALLAS_DETECT"]
+    nframes += 1
+    if detection.fused_detect.launches < k5 + 2:
+        raise AssertionError("BBTPU_PALLAS_DETECT=1 did not route detection "
+                             "and transients through fused_detect")
+    if not torch.equal(n0, n1):
+        raise AssertionError("K5 run: seg_nsources differs")
+    for part in ("trans_cat", "trans_stats"):
+        for k, v in b0[part].items():
+            same = (torch.equal(v, b1[part][k]) if not v.is_floating_point()
+                    else bool(((v == b1[part][k])
+                               | (torch.isnan(v)
+                                  & torch.isnan(b1[part][k]))).all()))
+            if not same:
+                raise AssertionError(f"K5 run: {part}[{k}] differs")
+    print(f"gated scene with BBTPU_PALLAS_DETECT=1: seg_nsources "
+          f"{int(n1)}, trans_cat and trans_stats bit-identical to the run "
+          f"without it [{card}]")
+    return nframes
+
+
+def check_gated(b, tx, ty, card):
+    """The gated scene's transients, flux ratio and maps."""
+    ts, tc = b["trans_stats"], b["trans_cat"]
+    for k in ("D", "Scorr", "Fpsf"):
+        if not bool(torch.isfinite(b[k]).all()):
+            raise AssertionError(f"gated scene: {k} is not finite")
+    v = tc["valid"].cpu().numpy()
+    x, y = tc["x"].cpu().numpy(), tc["y"].cpu().numpy()
+    sign = tc["sign"].cpu().numpy()
+    d = np.hypot(x[None, :] - tx[:, None], y[None, :] - ty[:, None])
+    d = np.where(v[None, :], d, np.inf)
+    found = int(((d < 2.0) & (sign[None, :] > 0)).any(1).sum())
+    elsewhere = int((v & (d.min(0) > 3.0)).sum())
+    fr = float(ts["z_fratio"])
+    print(f"gated scene: {found} of {NTRANS} transients recovered within "
+          f"2 px, {elsewhere} valid transients elsewhere, z_fratio {fr:.4f}"
+          f", z_nmatch {int(ts['z_nmatch'])}, t_ntrans "
+          f"{int(ts['t_ntrans'])} [{card}]")
+    if found < 16:
+        raise AssertionError(f"gated scene: {found} of {NTRANS} recovered")
+    if abs(fr / FRATIO - 1.0) > 0.05:
+        raise AssertionError(f"gated scene: z_fratio {fr}")
+    if elsewhere > 20:
+        raise AssertionError(f"gated scene: {elsewhere} spurious transients")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -234,77 +626,45 @@ def main() -> int:
     results = check_kernels(card)
     torch.cuda.empty_cache()
 
-    # phase 3: the main path
     from blackbox_tpu_torch.core.geometry import MEERLICHT
-    from blackbox_tpu_torch.ops import filters, labeling, windows
     from blackbox_tpu_torch.ops.cosmics import LACosmicParams
     from blackbox_tpu_torch.ops.detection import DetectParams
-    from blackbox_tpu_torch.pipeline.reduce import (ReduceContext,
-                                                    make_reduce_fn)
-    from blackbox_tpu_torch.synth.device import make_science_device
+    from blackbox_tpu_torch.pipeline.reduce import ReduceContext
 
     def ctx_for(geom):
         return ReduceContext.from_defaults(
             geom, "ML1", lac_params=LACosmicParams(strip_rows=176),
-            det_params=DetectParams(max_sources=20000, label_iters=32),
-            fit_psf=False)
+            det_params=DetectParams(max_sources=20000, label_iters=32))
 
     check_tiny(ctx_for, card)
 
-    geom = MEERLICHT
-    ctx = ctx_for(geom)
-    fn = make_reduce_fn(ctx)
-    C, ych, xch = geom.chan_shape
+    ctx = ctx_for(MEERLICHT)
+    C, ych, xch = MEERLICHT.chan_shape
     mgen = torch.Generator(device="cuda").manual_seed(99)
     mbias = 0.5 * torch.randn((C, ych, xch), generator=mgen, device="cuda")
     mflat = 1.0 + 0.02 * torch.randn((C, ych, xch), generator=mgen,
                                      device="cuda")
     xtalk = np.random.default_rng(0).uniform(-2e-4, 2e-4, (C, C)).astype(
         np.float32)
-    counters = (labeling.label_propagate, filters.median_filter,
-                windows.gather_slot_windows)
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    frame_ms = []
-    for i, seed in enumerate(SEEDS):
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        chan, osv, osh, _ = make_science_device(
-            gen, geom, nstars=4000, ncosmics=800, trail=True, nsat=20)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(chan, osv, osh, mbias, mflat, None, xtalk)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        check_outputs(out, ctx, f"frame {i}")
-        st = out["stats"]
-        nobj, ncr, nsat = (int(st["nobjects"]), int(st["ncosmics"]),
-                           int(st["nsats"]))
-        print(f"frame {i} (seed {seed}{', warm-up' if i == 0 else ''}): "
-              f"{ms:.1f} ms, nobjects {nobj}, ncosmics {ncr}, nsats {nsat}, "
-              f"seeing {float(st['s_seeing_pix']):.2f} px [{card}]")
-        if not 3000 <= nobj <= 5000:
-            raise AssertionError(f"frame {i}: nobjects {nobj} outside "
-                                 "3000..5000 (4020 sources injected)")
-        if ncr <= 0 or nsat < 1:
-            raise AssertionError(f"frame {i}: ncosmics {ncr}, nsats {nsat}")
-        frame_ms.append(ms)
-        del out, chan, osv, osh
-    launches = {c.__name__: c.launches for c in counters}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    steady = frame_ms[1:]
-    print(f"main path: {sum(steady) / len(steady):.1f} ms/frame steady "
-          f"(frames {', '.join(f'{m:.1f}' for m in steady)} ms after a "
-          f"{frame_ms[0]:.1f} ms warm-up), peak memory {peak_gib:.2f} GiB, "
-          f"launches {launches} [{card}]")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the main "
-                                 "path")
+
+    # phase 3: raw -> catalog
+    zero_counts()
+    reduce_phase(ctx, card, mbias, mflat, xtalk)
+    c3 = read_counts("raw -> catalog", card, ("label_propagate",
+                                              "median_filter",
+                                              "gather_slot_windows"))
+    torch.cuda.empty_cache()
+
+    # phase 4: raw -> transient catalog
+    zero_counts()
+    nframes = science_phase(ctx, card, mbias, mflat, xtalk)
+    c4 = read_counts("raw -> transient catalog", card, tuple(counters()))
+    if c4["fft_cols_split"] != 6 * nframes:
+        raise AssertionError(f"fft_cols_split: {c4['fft_cols_split']} "
+                             f"launches for {nframes} science frames")
 
     for r in results:
-        r["route"] = "cuda"
-        r["launches"] = launches[r["name"]]
+        r["launches"] = c3[r["name"]] + c4[r["name"]]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

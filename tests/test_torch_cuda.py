@@ -88,14 +88,16 @@ def test_reduce_tiny_card_matches_cpu(dev):
     from blackbox_tpu_torch.pipeline.reduce import (ReduceContext,
                                                     make_reduce_fn)
     from blackbox_tpu_torch.synth.device import make_science_device
-    fn = make_reduce_fn(ReduceContext.from_defaults(TINY))
+    ctx = ReduceContext.from_defaults(TINY)
     gen = torch.Generator().manual_seed(5)
     chan, osv, osh, _ = make_science_device(gen, TINY, nstars=40,
                                             ncosmics=12, nsat=2)
     xt = np.random.default_rng(0).uniform(-2e-4, 2e-4, (16, 16)).astype(
         np.float32)
-    cpu = fn(chan, osv, osh, None, None, None, xt)
-    gpu = fn(chan.to(dev), osv.to(dev), osh.to(dev), None, None, None, xt)
+    cpu = make_reduce_fn(ctx, device="cpu")(chan, osv, osh, None, None,
+                                            None, xt)
+    gpu = make_reduce_fn(ctx)(chan, osv, osh, None, None, None, xt)
+    assert gpu["image"].device.type == "cuda"
     assert torch.equal(cpu["mask"], gpu["mask"].cpu())
     assert torch.equal(cpu["seg_nsources"], gpu["seg_nsources"].cpu())
     for k in ("nobjects", "ncosmics", "nsats", "nobj_sat"):
@@ -103,3 +105,164 @@ def test_reduce_tiny_card_matches_cpu(dev):
     atol = 1e-3 + 1e-5 * float(cpu["stats"]["biasm"].abs().max())
     torch.testing.assert_close(gpu["image"].cpu(), cpu["image"], rtol=1e-5,
                                atol=atol)
+    assert int(cpu["stats"]["psf_nstars"]) == int(gpu["stats"]["psf_nstars"])
+
+
+@pytest.mark.parametrize("N", [96, 160, 168, 352, 384, 1024, 2688, 10752])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_kernel(dev, N, inverse):
+    """K6 against its plain version: every supported odd factor, N1 from
+    8 to 1024, column counts that do and do not fill a block."""
+    from blackbox_tpu_torch.ops import fft
+    g = torch.Generator(device=dev).manual_seed(N + inverse)
+    for L in ((1, 37, 128) if N <= 2688 else (64,)):
+        xr = torch.randn((N, L), generator=g, device=dev)
+        xi = torch.randn((N, L), generator=g, device=dev)
+        scale = 1.0 / N if inverse else 1.0
+        before = fft.fft_cols_split.launches
+        got = fft.fft_cols_split(xr, xi, inverse, scale)
+        assert fft.fft_cols_split.launches == before + 1
+        ref = fft._fft_cols_plain(xr, xi, inverse, scale)
+        _same(got[0], ref[0])
+        _same(got[1], ref[1])
+
+
+def test_fft2_kernel_is_a_dft(dev):
+    """fft2_split on the card, unscrambled, against torch.fft.fft2 (a
+    check of the algorithm, not of the bits: 2e-5 of the spectrum's
+    scale, float32 transforms of 10^5 points), and the inverse
+    round trip."""
+    from blackbox_tpu_torch.ops import fft
+    g = torch.Generator(device=dev).manual_seed(1)
+    xr = torch.randn((384, 1024), generator=g, device=dev)
+    xi = torch.randn((384, 1024), generator=g, device=dev)
+    yr, yi = fft.fft2_split(xr, xi)
+    want = torch.fft.fft2(torch.complex(xr, xi))
+    got = fft.unscramble2(yr, yi)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) < 2e-5 * scale
+    zr, zi = fft.ifft2_split(yr, yi)
+    assert float((zr - xr).abs().max()) < 1e-5
+    assert float((zi - xi).abs().max()) < 1e-5
+
+
+def _detect_inputs(dev, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, W = shape
+    img = torch.randn(shape, generator=g, device=dev)
+    ys = torch.randint(0, H, (max(H * W // 400, 1),), generator=g,
+                       device=dev)
+    xs = torch.randint(0, W, ys.shape, generator=g, device=dev)
+    img[ys, xs] += 40.0
+    img[0, :] += 5.0                         # a source on the border row
+    std = 0.5 + torch.rand(shape, generator=g, device=dev)
+    std[H // 3, W // 3] = float("nan")
+    std[H // 2, W // 2] = 0.0
+    excl = torch.rand(shape, generator=g, device=dev) > 0.97
+    return img, std, excl
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (70, 130), (257, 1031),
+                                   (600, 530)])
+@pytest.mark.parametrize("form", ["detect", "transient", "bare"])
+def test_detect_kernel(dev, shape, form):
+    """K5 against its plain version in the detection form (9 taps, std
+    map, exclusion, 32 steps), the transient form (|x|, no taps, no std,
+    exclusion, 48 steps) and a bare form (no std, no exclusion)."""
+    from blackbox_tpu_torch.ops import detection
+    img, std, excl = _detect_inputs(dev, shape, sum(shape))
+    taps = detection.gaussian_taps(3.0)
+    args = {"detect": (img, std, excl, taps, 1.5, 32, False),
+            "transient": (3.0 * img, None, excl, None, 6.0, 48, True),
+            "bare": (img, None, None, taps, 2.0, 24, False)}[form]
+    before = detection.fused_detect.launches
+    seg, n = detection.fused_detect(*args[:5], iters=args[5],
+                                    absval=args[6])
+    assert detection.fused_detect.launches == before + 1
+    seg_p, n_p = detection._fused_detect_plain(*args)
+    _same(seg, seg_p)
+    _same(n, n_p)
+    assert n.device.type == "cuda"
+
+
+def test_detect_segments_switch(dev, monkeypatch):
+    """BBTPU_PALLAS_DETECT=1 routes detect_segments through K5 on a
+    frame of at least 512 x 512, with the same segments as the route
+    through K1."""
+    from blackbox_tpu_torch.ops import detection
+    img, std, excl = _detect_inputs(dev, (600, 530), 4)
+    p = detection.DetectParams()
+    monkeypatch.delenv("BBTPU_PALLAS_DETECT", raising=False)
+    seg0, n0 = detection.detect_segments(img, std, excl, p)
+    monkeypatch.setenv("BBTPU_PALLAS_DETECT", "1")
+    before = detection.fused_detect.launches
+    seg1, n1 = detection.detect_segments(img, std, excl, p)
+    assert detection.fused_detect.launches == before + 1
+    _same(seg1, seg0)
+    assert int(n1) == int(n0)
+
+
+def test_science_tiny_card_matches_cpu(dev):
+    """The TINY science step with the split FFT: the card (K1, K2, K4,
+    K6) against the CPU (plain versions).  The transforms are bit-equal;
+    the small DFT matmuls and reductions round differently, so the maps
+    are held at the CPU parity tests' tolerances
+    (tests/test_torch_science.py) and the catalog's counts exactly."""
+    import numpy as np
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.ops import fft, warp
+    from blackbox_tpu_torch.ops.zogy import ZogyParams
+    from blackbox_tpu_torch.pipeline import subtract
+    from blackbox_tpu_torch.pipeline.reduce import ReduceContext
+    from blackbox_tpu_torch.synth.device import make_science_device
+    ctx = ReduceContext.from_defaults(TINY)
+    gen = torch.Generator().manual_seed(11)
+    chan, osv, osh, _ = make_science_device(gen, TINY, nstars=40,
+                                            ncosmics=4, nsat=0)
+    H, W = TINY.red_shape
+    step, fr = 32, 1.6
+    gy = np.arange(0, H + step, step, dtype=np.float32)
+    gx = np.arange(0, W + step, step, dtype=np.float32)
+    sy = np.broadcast_to(gy[:, None] + 3, (len(gy), len(gx))).copy()
+    sx = np.broadcast_to(gx[None, :] - 2, (len(gy), len(gx))).copy()
+    ranges = warp.grid_shift_ranges(sy, sx, step=step)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        front, back = subtract.make_science_programs(
+            ctx, zogy_params=ZogyParams(fft="split"), remap_ranges=ranges,
+            remap_step=step, device=device)
+        ref = front(chan, osv, osh, None, None, None)
+        roll = lambda a: torch.roll(a, (3, -2), (0, 1))  # noqa: E731
+        cat = ref["cat"]
+        before = fft.fft_cols_split.launches
+        b = back(ref["sub"], ref["bkg_std"], ref["mask"], ref["psf_centre"],
+                 cat, ref["stats"]["bkg_std"], roll(ref["sub"] * fr),
+                 roll(ref["bkg_std"] * fr), roll(ref["mask"]), (sy, sx),
+                 ref["psf_centre"], ref["stats"]["bkg_std"] * fr,
+                 {"x": cat["x"], "y": cat["y"], "flux": cat["flux_psf"] * fr,
+                  "fluxerr": cat["fluxerr_psf"] * fr, "valid": cat["valid"]})
+        if device == "cuda":
+            assert b["D"].device.type == "cuda"
+            # five 2-D transforms: at 132 rows the squared kernels take
+            # the full-frame path (kernel_stamp 256 exceeds the frame)
+            assert fft.fft_cols_split.launches == before + 10
+        outs[device] = b
+    cpu, gpu = outs["cpu"], outs["cuda"]
+    for k in ("D", "Fpsf"):
+        scale = float(cpu[k].abs().max())
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=0,
+                                   atol=2e-4 * scale)
+    # Scorr inside the 26-px border band (the PSF stamp's width, under
+    # the EDGE bit in production): at the frame edge V[S] is a few
+    # near-cancelling sums and its rounding moved 9 edge pixels by more
+    interior = (slice(26, -26), slice(26, -26))
+    torch.testing.assert_close(gpu["Scorr"].cpu()[interior],
+                               cpu["Scorr"][interior], rtol=0.05, atol=3e-3)
+    gs, cs = gpu["trans_stats"], cpu["trans_stats"]
+    assert int(gs["t_ntrans"]) == int(cs["t_ntrans"])
+    # every matched star's flux ratio is 1.6 to a few ulps here, so the
+    # 3-MAD clip (a MAD at the ulp level) keeps a rounding-dependent
+    # subset: the counts are not compared, the ratio is
+    assert min(int(gs["z_nmatch"]), int(cs["z_nmatch"])) >= 10
+    assert abs(float(gs["z_fratio"]) / float(cs["z_fratio"]) - 1) < 1e-5
+    assert abs(float(gs["z_fratio"]) / fr - 1) < 0.05

@@ -40,7 +40,12 @@ SLICE_MODULES = [
     "blackbox_tpu_torch.ops.detection",
     "blackbox_tpu_torch.ops.photometry",
     "blackbox_tpu_torch.ops.psf",
+    "blackbox_tpu_torch.ops.fft",
+    "blackbox_tpu_torch.ops.warp",
+    "blackbox_tpu_torch.ops.zogy",
+    "blackbox_tpu_torch.ops.transients",
     "blackbox_tpu_torch.pipeline.reduce",
+    "blackbox_tpu_torch.pipeline.subtract",
     "blackbox_tpu_torch.synth.device",
 ]
 
@@ -112,9 +117,73 @@ def test_comparator_networks_copy(k):
 
 def test_fast_fft_size_copy():
     from blackbox_tpu.ops.zogy import fast_fft_size as jfast
-    from blackbox_tpu_torch.ops.satdet import fast_fft_size as tfast
+    from blackbox_tpu.ops.zogy import split_fft_size as jsplit
+    from blackbox_tpu_torch.ops import satdet, zogy
+    # one copy, in ops/zogy.py, which ops/satdet.py imports
+    assert satdet.fast_fft_size is zogy.fast_fft_size
     for m in (1, 7, 240, 990, 1000, 1584, 10560):
-        assert tfast(m) == jfast(m)
+        assert zogy.fast_fft_size(m) == jfast(m)
+        assert zogy.split_fft_size(m) == jsplit(m)
+
+
+def test_every_port_module_is_guarded():
+    """Every module of the port is in SLICE_MODULES, so the no-jax
+    import test covers modules added later too."""
+    import pathlib
+    pkg = pathlib.Path(REPO) / "blackbox_tpu_torch"
+    found = {".".join(p.relative_to(REPO).with_suffix("").parts)
+             for p in pkg.rglob("*.py") if p.name != "__init__.py"}
+    assert found <= set(SLICE_MODULES), sorted(found - set(SLICE_MODULES))
+
+
+@pytest.mark.parametrize("N", [16, 96, 160, 352, 384, 1344, 10752])
+def test_fft_plan_copy(N):
+    from blackbox_tpu.pallas import fft as jfft
+    from blackbox_tpu_torch.ops import fft as tfft
+    assert tfft.plan(N) == jfft.plan(N)
+    N1, _, k = jfft.plan(N)
+    np.testing.assert_array_equal(tfft._bitrev(N1, k), jfft._bitrev(N1, k))
+    for f in ("spectrum_perm", "spectrum_freqs", "mirror_perm"):
+        np.testing.assert_array_equal(getattr(tfft, f)(N),
+                                      getattr(jfft, f)(N))
+    for inverse in (False, True):
+        for a, b in zip(tfft._tables(N, inverse), jfft._tables(N, inverse)):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    for bad in (84, 10560):
+        with pytest.raises(ValueError):
+            tfft.plan(bad)
+
+
+def test_warp_host_helpers_copy():
+    from blackbox_tpu.ops import warp as jwarp
+    from blackbox_tpu_torch.ops import warp as twarp
+    rng = np.random.default_rng(0)
+    gy = np.arange(0, 10560 + 32, 32, np.float64)
+    gx = np.arange(0, 10560 + 32, 32, np.float64)
+    gyy, gxx = np.meshgrid(gy - 5280, gx - 5280, indexing="ij")
+    th = np.deg2rad(0.05)
+    sx = (5280 + np.cos(th) * gxx + np.sin(th) * gyy + 3.2).astype(
+        np.float32)
+    sy = (5280 - np.sin(th) * gxx + np.cos(th) * gyy - 2.7
+          + rng.normal(0, 0.1, gyy.shape)).astype(np.float32)
+    for blocks in (1, 8):
+        assert (twarp.grid_shift_ranges(sy, sx, step=32, blocks=blocks)
+                == jwarp.grid_shift_ranges(sy, sx, step=32, blocks=blocks))
+    assert twarp.grid_row_margin(sy, 32) == jwarp.grid_row_margin(sy, 32)
+
+
+def test_science_params_carry_across():
+    from blackbox_tpu.ops.transients import TransientParams as JTP
+    from blackbox_tpu.ops.zogy import ZogyParams as JZP
+    from blackbox_tpu_torch.ops.transients import TransientParams
+    from blackbox_tpu_torch.ops.zogy import ZogyParams
+    for mine, ref in ((ZogyParams, JZP), (TransientParams, JTP)):
+        assert _fields(mine()) == _fields(ref()), mine.__name__
+        changed = dataclasses.replace(
+            ref(), **{"fft": "split", "kernel_stamp": 128}
+            if ref is JZP else {"nsigma": 5.0, "label_iters": 32})
+        assert _fields(mine.from_reference(changed)) == _fields(changed)
 
 
 def _fields(obj):
@@ -149,15 +218,15 @@ def test_from_reference_carries_every_field():
 @pytest.mark.parametrize("gname", ["MEERLICHT", "TINY"])
 def test_from_defaults_matches_from_settings(tel, gname):
     """The port's default context equals the JAX package's
-    ReduceContext.from_settings(ReductionSettings()) (PSF off)."""
+    ReduceContext.from_settings(ReductionSettings()), PSF stages on."""
     from blackbox_tpu.config.defaults import ReductionSettings
     from blackbox_tpu.core import geometry as jg
     from blackbox_tpu.pipeline.reduce import ReduceContext as JCtx
     from blackbox_tpu_torch.core import geometry as tg
     from blackbox_tpu_torch.pipeline.reduce import ReduceContext
-    want = dataclasses.replace(
-        JCtx.from_settings(ReductionSettings(geometry=getattr(jg, gname)),
-                           tel), fit_psf=False)
+    want = JCtx.from_settings(ReductionSettings(geometry=getattr(jg, gname)),
+                              tel)
+    assert want.fit_psf
     got = ReduceContext.from_defaults(getattr(tg, gname), tel)
     _assert_same_context(got, want)
     np.testing.assert_array_equal(got.gains, want.gains)

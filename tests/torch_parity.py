@@ -45,10 +45,10 @@ def assert_close(got, want, rtol: float, atol: float = 0.0, what: str = ""):
 
 
 def jax_ctx(**overrides):
-    """The JAX pipeline test context (tests/test_pipeline.py::_ctx) with
-    the PSF stages off, as the port's slice runs."""
+    """The JAX pipeline test context (tests/test_pipeline.py::_ctx),
+    with the PSF stages off unless ``fit_psf=True`` is passed."""
     from test_pipeline import _ctx
-    return dataclasses.replace(_ctx(), fit_psf=False, **overrides)
+    return dataclasses.replace(_ctx(), **{"fit_psf": False, **overrides})
 
 
 def tiny_frame(seed: int):
