@@ -5,11 +5,14 @@ mirrors its layout (``core/``, ``ops/``, ``pipeline/``, ``synth/``) and
 its public function names, so each module's counterpart is found under
 the same path.  It imports ``torch`` and never ``jax``.
 
-The first slice is the per-frame reduction, raw 16-channel frame ->
+The ported paths are the per-frame reduction, raw 16-channel frame ->
 calibrated mosaic + mask + catalog
-(:func:`blackbox_tpu_torch.pipeline.reduce.make_reduce_fn`).  The three
-TPU kernels on that path are hand-written CUDA kernels for Hopper
-(``csrc/``), built with ``nvcc`` at first use and bound with ctypes
+(:func:`blackbox_tpu_torch.pipeline.reduce.make_reduce_fn`), the
+science frame -> transient catalog
+(:mod:`blackbox_tpu_torch.pipeline.subtract`) and the master frames
+(:mod:`blackbox_tpu_torch.pipeline.masters`).  Every TPU kernel of the
+JAX package is a hand-written CUDA kernel for Hopper (``csrc/``), built
+with ``nvcc`` at first use and bound with ctypes
 (:mod:`blackbox_tpu_torch.kernels`).  Each kernel's wrapper takes its
 plain PyTorch version for CPU tensors and launches the kernel, or
 raises, for CUDA tensors.

@@ -26,7 +26,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-SOURCES = ("labelprop.cu", "medians.cu", "gather.cu", "fft.cu", "detect.cu")
+SOURCES = ("labelprop.cu", "medians.cu", "gather.cu", "fft.cu", "detect.cu",
+           "lacosmic.cu", "upsample.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -50,6 +51,12 @@ _SIGNATURES = {
     #  seg, count, stream)
     "bbt_fused_detect": (_P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P, _P,
                          _P),
+    # (clean, inm, crm, rdn, out_clean, out_crm, scratch, Hp, Wp, halo,
+    #  sigclip, sigclip * sigfrac, objlim, stream)
+    "bbt_lacosmic_iter": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                          _F, _P),
+    # (meshes, Wy, WxT, out, n, H, W, ny, nx, stream)
+    "bbt_upsample_mesh": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

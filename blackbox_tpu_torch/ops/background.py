@@ -4,7 +4,8 @@
 Per-box sigma-clipped median/STD meshes, a 3x3 median filter of the
 mesh, and the bicubic (Catmull-Rom) upsample ``Wy @ mesh @ Wx.T`` as
 two float32 matmuls (the package pins full float32 at import: the
-background must be sub-ADU accurate).
+background must be sub-ADU accurate), or, with ``use_pallas``, through
+the K3 kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from blackbox_tpu_torch.ops.stats import median, nanmedian, sorted_clipped_stats
+from blackbox_tpu_torch.ops.upsample import upsample_mesh
 
 
 def background_mesh(image, mask, boxsize: int, nsigma: float = 3.0,
@@ -90,10 +92,19 @@ def _catmull_rom_matrix(n_out: int, n_mesh: int, boxsize: int) -> np.ndarray:
     return W
 
 
-def mini2back(mesh, out_shape, boxsize: int):
-    """Bicubic upsample of a background mesh to full resolution."""
+def mini2back(mesh, out_shape, boxsize: int, use_pallas: bool = False):
+    """Bicubic upsample of a background mesh to full resolution.
+
+    The default is the JAX package's: two float32 matmuls.  With
+    ``use_pallas`` it runs :func:`blackbox_tpu_torch.ops.upsample.
+    upsample_mesh`, the port of the TPU kernel K3 (CUDA kernel
+    ``csrc/upsample.cu`` on the card); the two differ only in the order
+    of the float32 sums.
+    """
     H, W = out_shape
     ny, nx = mesh.shape
     Wy = torch.tensor(_catmull_rom_matrix(H, ny, boxsize), device=mesh.device)
     Wx = torch.tensor(_catmull_rom_matrix(W, nx, boxsize), device=mesh.device)
+    if use_pallas:
+        return upsample_mesh((mesh,), Wy, Wx, (H, W))[0]
     return torch.matmul(torch.matmul(Wy, mesh), Wx.T)

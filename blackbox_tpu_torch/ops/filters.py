@@ -228,6 +228,27 @@ def median_filter(img: torch.Tensor, k: int, strip_rows: int = 264):
 median_filter.launches = 0
 
 
+def median_filter_sep(img: torch.Tensor, k: int, strip_rows: int = 264):
+    """Separable k x k median: the k-median along y, then along x.
+
+    The astroscrappy ``sepmed`` variant, plain PyTorch on every device
+    (the JAX package has no kernel for it): the full odd-even
+    transposition network of k values, as the JAX package runs it, on
+    interior row strips; the outer ``k//2`` border keeps the input.
+    """
+    H, W = img.shape
+    p = k // 2
+    ops = [("ce", a, b) for a, b in transposition_pairs(k)]
+    out = img.clone()
+    for r0, r1 in _strips(H, p, strip_rows):
+        s = img[r0 - p:r1 + p]
+        h = r1 - r0
+        col = apply_ops([s[dy:dy + h] for dy in range(k)], ops)[p]
+        out[r0:r1, p:W - p] = apply_ops(
+            [col[:, dx:dx + W - 2 * p] for dx in range(k)], ops)[p]
+    return out
+
+
 def masked_median_filter(img: torch.Tensor, bad: torch.Tensor, k: int = 5,
                          strip_rows: int = 264, fallback=None):
     """k x k median over neighbours where ``bad`` is False.

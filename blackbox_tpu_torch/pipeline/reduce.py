@@ -1,19 +1,19 @@
 """The per-frame reduction: raw channel stacks -> calibrated mosaic +
 mask + catalog (port of :mod:`blackbox_tpu.pipeline.reduce`).
 
-Step order follows the JAX package: gain -> overscan -> master bias ->
-mask -> flat -> L.A.Cosmic -> crosstalk -> satellite trails -> edge
-fill -> background -> detection -> moments -> aperture photometry ->
-PSF fit and PSF photometry.  The functions run eagerly on the tensors'
-device; the hand-written CUDA kernels (label propagation, k x k
-medians, window gathers, and the fused detection under
-``BBTPU_PALLAS_DETECT=1``) are reached through their ``ops`` wrappers.
-The entry point :func:`make_reduce_fn` moves its inputs to the card
-unless it is asked for another device.
+Step order follows the JAX package: gain -> overscan -> non-linearity
+-> master bias -> mask -> flat -> L.A.Cosmic -> crosstalk -> satellite
+trails -> edge fill -> background -> detection -> moments -> aperture
+photometry -> PSF fit and PSF photometry.  The functions run eagerly on
+the tensors' device; the hand-written CUDA kernels (label propagation,
+k x k medians, window gathers, the fused detection under
+``BBTPU_PALLAS_DETECT=1``, and the fused L.A.Cosmic iteration under
+``LACosmicParams(use_pallas=True)``) are reached through their ``ops``
+wrappers.  The entry point :func:`make_reduce_fn` moves its inputs to
+the card unless it is asked for another device.
 
-Not in this slice (each raises NotImplementedError where asked for):
-the non-linearity correction (``correct_nonlin`` with coefficients) and
-the tiled satellite-segment mode (``detect_sat_segments``).
+Not in this slice: the tiled satellite-segment mode
+(``detect_sat_segments`` raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from blackbox_tpu_torch.ops.gain import gain_correct
 from blackbox_tpu_torch.ops.labeling import euler_count
 from blackbox_tpu_torch.ops.masking import build_mask
 from blackbox_tpu_torch.ops.morphology import fill_holes
+from blackbox_tpu_torch.ops.nonlin import nonlin_correct
 from blackbox_tpu_torch.ops.overscan import OverscanParams, overscan_correct
 from blackbox_tpu_torch.ops.photometry import aperture_photometry
 from blackbox_tpu_torch.ops.psf import (PSFParams, build_psf, psf_at,
@@ -134,9 +135,9 @@ def calibrate_detector(ctx: ReduceContext, chan_data, os_vert, os_hori,
     mbias : (C, ych, xch) master bias [e-] or None
     mflat : (C, ych, xch) normalised master flat or None
     bpm   : (C, ych, xch) uint8 static mask or None
+    nonlin_coeffs : (C, D) non-linearity polynomial, applied when
+            ``ctx.correct_nonlin`` is set, or None
     """
-    if ctx.correct_nonlin and nonlin_coeffs is not None:
-        raise NotImplementedError("non-linearity correction is not ported")
     geom = ctx.geom
     dev = chan_data.device
     gains = torch.tensor(ctx.gains, dtype=torch.float32, device=dev)
@@ -149,6 +150,10 @@ def calibrate_detector(ctx: ReduceContext, chan_data, os_vert, os_hori,
                                       satlevel_e=satlevel_adu * gains,
                                       params=ctx.os_params)
     stats.update(os_stats)
+
+    if ctx.correct_nonlin and nonlin_coeffs is not None:
+        chan = nonlin_correct(chan, gains, torch.as_tensor(
+            nonlin_coeffs, dtype=torch.float32, device=dev))
 
     if ctx.subtract_mbias and mbias is not None:
         chan = chan - mbias
@@ -300,16 +305,17 @@ def to_device(x, device):
     return torch.as_tensor(x, device=device)
 
 
-def make_reduce_fn(ctx: ReduceContext, device="cuda"):
+def make_reduce_fn(ctx: ReduceContext, with_catalog: bool = True,
+                   device="cuda"):
     """Build the end-to-end reduce function.
 
     The returned callable takes ``(chan_data, os_vert, os_hori, mbias,
     mflat, bpm, xtalk_coeffs)`` as tensors or numpy arrays (the
     calibration arrays may be None), moves every one to ``device`` (the
     card unless the caller asks for another, e.g. ``device="cpu"``),
-    and returns ``{"image", "mask", "stats", "bkg", "bkg_std", "cat",
-    "seg_nsources"}`` plus ``"psf"`` (a :class:`PSFModel`) when
-    ``ctx.fit_psf``.
+    and returns ``{"image", "mask", "stats"}``, plus, with
+    ``with_catalog``, ``{"bkg", "bkg_std", "cat", "seg_nsources"}`` and
+    ``"psf"`` (a :class:`PSFModel`) when ``ctx.fit_psf``.
     """
     dev = torch.device(device)
 
@@ -321,10 +327,11 @@ def make_reduce_fn(ctx: ReduceContext, device="cuda"):
         sci, mask_m, stats = calibrate_detector(
             ctx, chan_data, os_vert, os_hori, mbias, mflat, bpm,
             xtalk_coeffs)
-        ext = extract_catalog(ctx, sci, mask_m)
-        out = {"image": sci, "mask": mask_m,
-               "stats": {**stats, **ext.pop("stats")}}
-        out.update(ext)
+        out = {"image": sci, "mask": mask_m, "stats": stats}
+        if with_catalog:
+            ext = extract_catalog(ctx, sci, mask_m)
+            out["stats"] = {**stats, **ext.pop("stats")}
+            out.update(ext)
         return out
 
     return fn

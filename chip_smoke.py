@@ -29,14 +29,31 @@ Phases, each printing its own lines:
    the integer shift (3, -2), 20 PSF-shaped transients injected into
    the new raw frame) run without and then with BBTPU_PALLAS_DETECT=1,
    which must give the same catalog bit for bit.
-5. One JSON line with the kernels' counts and times, then the last
+5. A calibration night, then the reduction under
+   ``LACosmicParams(use_pallas=True)``: 3 bias-like and 3 flat-like raw
+   frames calibrated as the driver calibrates calibration frames (no
+   crosstalk, non-linearity on, K7 in L.A.Cosmic), the master bias,
+   master flat (GAINCF) and flat statistics, then two science frames
+   reduced with those masters through K7, and each frame's two
+   background planes made again by ``mini2back(..., use_pallas=True)``
+   (K3, which no reduction calls) against the reduction's own.
+6. After phase 5's counted run: its first science frame reduced again
+   with the default L.A.Cosmic (the two cosmic masks must agree to a
+   Jaccard index of 0.9), then K7 and K3 against their plain versions,
+   bit for bit, on the inputs that frame gave them: K7 over 3
+   iterations on the whole calibrated 10560² mosaic, mask and read
+   noise the reduction passed it, K3 on the frame's two 41 x 41
+   background meshes to 10560² (beside ``torch.linalg.multi_dot``).
+7. One JSON line with the kernels' counts and times, then the last
    line ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before each of phases 3 and 4 and
-read just after it: every kernel of a phase's path must have moved, and
-K6 must show 6 launches per science frame.  Any failure raises: the
-script then exits non-zero and prints no ok line.  It needs a CUDA
-device and the repository's port package.
+The launch counters are zeroed just before each of phases 3, 4 and 5
+and read just after it: every kernel of a phase's path must have moved,
+K6 must show 6 launches per science frame, K7 3 per frame it
+calibrates (it counts iterations, five CUDA launches each) and K2 none
+in phase 5.  Any failure raises: the script then exits non-zero and
+prints no ok line.
+It needs a CUDA device and the repository's port package.
 """
 
 import json
@@ -304,6 +321,88 @@ def check_detect(card, img):
                  bound_by)
 
 
+def k7_ops_per_pixel() -> float:
+    """Float operations a pixel and iteration of csrc/lacosmic.cu: the
+    column sorts (one column a pixel) and pruned merges of its four
+    medians, the Laplacian and noise model, the gt tests and
+    dilations, and the masked clean (a 25-value transposition sort, the
+    blend and good count, the two 25-term rank picks)."""
+    from blackbox_tpu_torch.ops.filters import (sc_select_ops,
+                                                transposition_pairs)
+
+    def median(k):
+        merge, _ = sc_select_ops(k, (k * k // 2,))
+        return (2 * len(transposition_pairs(k))
+                + sum(2 if op[0] == "ce" else 1 for op in merge))
+
+    stage1 = median(5) + median(3) + 24      # lap 17, noise 2, s 2, clamp
+    stage2 = median(5) + median(7) + 20      # sp, noise, f, good, c1
+    grow = 9 + 25 + 2 * 7 + 1                # two dilations, gts, max
+    clean = 2 * len(transposition_pairs(25)) + 25 * 6 + 25 * 2 * 6 + 16
+    return float(stage1 + stage2 + grow + clean)
+
+
+def check_k7(card, args):
+    """K7 on the call the reduction made in phase 5 (``args``: the
+    calibrated mosaic, its mask, read noise, sigclip, sigfrac, objlim
+    and niter), bit-exact against its plain version at that full shape
+    and timed there."""
+    from blackbox_tpu_torch.ops import lacosmic_fused as K7
+    H, W = args[0].shape
+    niter = args[6]
+    got = K7.lacosmic_fused(*args)
+    ref = K7._lacosmic_plain(*args)
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    nflag = int(got[1].sum())
+    if nflag <= 0:
+        raise AssertionError("K7: no cosmic pixel flagged")
+    del got, ref
+    ms = cuda_ms(lambda: K7.lacosmic_fused(*args))
+    plain = cuda_ms(lambda: K7._lacosmic_plain(*args), reps=1)
+    Hp, Wp = K7.padded_shape(H, W)
+    per_px = k7_ops_per_pixel()
+    # f32 frame and bool inmask in, f32 clean and bool crmask out; the
+    # operations of niter iterations over the padded frame
+    bnd = bound(10.0 * H * W, f32_ops=niter * per_px * Hp * Wp)
+    print(f"K7 lacosmic_fused {H}x{W} (padded {Hp}x{Wp}), {niter} iterations "
+          f"({nflag} pixels flagged): bit-exact, kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}, {per_px:.0f} "
+          f"ops/px/iteration) [{card}]")
+    return entry("lacosmic_fused", "blackbox_tpu_torch/csrc/lacosmic.cu",
+                 "blackbox_tpu/pallas/lacosmic.py:120", err, ms, plain, *bnd)
+
+
+def check_k3(card, ctx, mesh, stdm):
+    """K3 on a calibrated frame's two background meshes at 10560²,
+    bit-exact against its plain version; timed for one mesh, as
+    ``mini2back`` launches it, beside ``torch.linalg.multi_dot``."""
+    from blackbox_tpu_torch.ops import upsample
+    from blackbox_tpu_torch.ops.background import _catmull_rom_matrix
+    H, W = ctx.geom.red_shape
+    box = ctx.bkg_boxsize
+    ny, nx = mesh.shape
+    Wy = torch.tensor(_catmull_rom_matrix(H, ny, box), device="cuda")
+    Wx = torch.tensor(_catmull_rom_matrix(W, nx, box), device="cuda")
+    got = upsample.upsample_mesh((mesh, stdm), Wy, Wx, (H, W))
+    ref = upsample._upsample_plain((mesh, stdm), Wy, Wx, (H, W))
+    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    del got, ref
+    ms = cuda_ms(lambda: upsample.upsample_mesh((mesh,), Wy, Wx, (H, W)))
+    plain = cuda_ms(lambda: upsample._upsample_plain((mesh,), Wy, Wx,
+                                                     (H, W)), reps=1)
+    lib = cuda_ms(lambda: torch.linalg.multi_dot([Wy, mesh, Wx.T]))
+    # weights and mesh read, the plane written; 2 nx operations an
+    # output pixel plus the (H, nx) first product
+    bnd = bound(4.0 * (H * W + H * ny + W * nx + ny * nx),
+                f32_ops=2.0 * nx * H * W + 2.0 * ny * nx * H)
+    print(f"K3 upsample_mesh {ny}x{nx} -> {H}x{W} (two meshes): bit-exact, "
+          f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library multi_dot "
+          f"{lib:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
+    return entry("upsample_mesh", "blackbox_tpu_torch/csrc/upsample.cu",
+                 "blackbox_tpu/pallas/upsample.py:35", err, ms, plain, *bnd,
+                 library_ms=lib)
+
+
 def check_outputs(out, ctx, label):
     """Finite image/stats/catalog of the expected shapes."""
     H, W = ctx.geom.red_shape
@@ -367,12 +466,14 @@ def check_tiny(reduce_ctx_for, card):
 def counters():
     """The launch-counted wrappers, one per kernel, by JSON name."""
     from blackbox_tpu_torch.ops import detection, fft, filters, labeling
-    from blackbox_tpu_torch.ops import windows
+    from blackbox_tpu_torch.ops import lacosmic_fused, upsample, windows
     return {"label_propagate": labeling.label_propagate,
             "median_filter": filters.median_filter,
             "gather_slot_windows": windows.gather_slot_windows,
             "fft_cols_split": fft.fft_cols_split,
-            "fused_detect": detection.fused_detect}
+            "fused_detect": detection.fused_detect,
+            "lacosmic_fused": lacosmic_fused.lacosmic_fused,
+            "upsample_mesh": upsample.upsample_mesh}
 
 
 def zero_counts():
@@ -389,6 +490,27 @@ def read_counts(label, card, needed):
         if counts[name] <= 0:
             raise AssertionError(f"{name} was never launched on {label}")
     return counts
+
+
+def check_frame(out, ctx, label, ms, card):
+    """A full frame's outputs and the gates of the raw -> catalog path:
+    nobjects 3000..5000 (4020 sources injected), cosmics and a trail
+    found, a finite PSF."""
+    check_outputs(out, ctx, label)
+    st = out["stats"]
+    nobj, ncr, nsat = (int(st["nobjects"]), int(st["ncosmics"]),
+                       int(st["nsats"]))
+    fwhm = float(st["psf_fwhm_pix"])
+    print(f"{label}: {ms:.1f} ms, nobjects {nobj}, ncosmics {ncr}, nsats "
+          f"{nsat}, seeing {float(st['s_seeing_pix']):.2f} px, PSF "
+          f"{int(st['psf_nstars'])} stars, FWHM {fwhm:.2f} px [{card}]")
+    if not 3000 <= nobj <= 5000:
+        raise AssertionError(f"{label}: nobjects {nobj} outside "
+                             "3000..5000 (4020 sources injected)")
+    if ncr <= 0 or nsat < 1:
+        raise AssertionError(f"{label}: ncosmics {ncr}, nsats {nsat}")
+    if not np.isfinite(fwhm):
+        raise AssertionError(f"{label}: PSF FWHM {fwhm}")
 
 
 def reduce_phase(ctx, card, mbias, mflat, xtalk):
@@ -409,22 +531,8 @@ def reduce_phase(ctx, card, mbias, mflat, xtalk):
         out = fn(chan, osv, osh, mbias, mflat, None, xtalk)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        check_outputs(out, ctx, f"frame {i}")
-        st = out["stats"]
-        nobj, ncr, nsat = (int(st["nobjects"]), int(st["ncosmics"]),
-                           int(st["nsats"]))
-        fwhm = float(st["psf_fwhm_pix"])
-        print(f"frame {i} (seed {seed}{', warm-up' if i == 0 else ''}): "
-              f"{ms:.1f} ms, nobjects {nobj}, ncosmics {ncr}, nsats {nsat}, "
-              f"seeing {float(st['s_seeing_pix']):.2f} px, PSF "
-              f"{int(st['psf_nstars'])} stars, FWHM {fwhm:.2f} px [{card}]")
-        if not 3000 <= nobj <= 5000:
-            raise AssertionError(f"frame {i}: nobjects {nobj} outside "
-                                 "3000..5000 (4020 sources injected)")
-        if ncr <= 0 or nsat < 1:
-            raise AssertionError(f"frame {i}: ncosmics {ncr}, nsats {nsat}")
-        if not np.isfinite(fwhm):
-            raise AssertionError(f"frame {i}: PSF FWHM {fwhm}")
+        check_frame(out, ctx, f"frame {i} (seed {seed}"
+                    f"{', warm-up' if i == 0 else ''})", ms, card)
         frame_ms.append(ms)
         del out, chan, osv, osh
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -610,6 +718,160 @@ def check_gated(b, tx, ty, card):
         raise AssertionError(f"gated scene: {elsewhere} spurious transients")
 
 
+# a fixed, small (16, 3) fractional non-linearity: -0.2% to +0.5% across
+# the ADU range, varying by channel
+NONLIN = np.stack([1e-3 + 5e-4 * np.linspace(-1, 1, 16),
+                   np.full(16, 2e-3), 1e-3 * np.linspace(-1, 1, 16) ** 2],
+                  axis=1).astype(np.float32)
+
+
+def calib_phase(ctx, card, xtalk):
+    """Phase 5: a calibration night, masters, then science frames under
+    LACosmicParams(use_pallas=True), with each frame's background planes
+    made again by mini2back(..., use_pallas=True).  Returns the number
+    of frames calibrated through K7 and what the first science frame
+    leaves for phase 6: its raw frame, the masters, its cosmic count
+    and mask, the inputs the reduction gave K7 and its two background
+    meshes."""
+    import dataclasses
+    from blackbox_tpu_torch.ops import lacosmic_fused as K7
+    from blackbox_tpu_torch.ops.background import background_mesh, mini2back
+    from blackbox_tpu_torch.ops.flatstats import flat_statistics
+    from blackbox_tpu_torch.pipeline.masters import master_bias, master_flat
+    from blackbox_tpu_torch.pipeline.reduce import (calibrate_detector,
+                                                    make_reduce_fn)
+    from blackbox_tpu_torch.synth.device import make_science_device
+
+    geom = ctx.geom
+    H, W = geom.red_shape
+    k7 = dataclasses.replace(ctx.lac_params, use_pallas=True)
+    cal_ctx = dataclasses.replace(ctx, correct_nonlin=True, lac_params=k7)
+    nk7 = 0
+
+    def calibrate(seed, sky, mbias):
+        """A raw bias/flat-like frame calibrated as the driver calibrates
+        calibration frames: no crosstalk, non-linearity on, no flat."""
+        nonlocal nk7
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        raw = make_science_device(gen, geom, nstars=0, sky_e=sky,
+                                  ncosmics=0, trail=False, nsat=0)[:3]
+        with torch.inference_mode():
+            sci, _, _ = calibrate_detector(cal_ctx, *raw, mbias, None, None,
+                                           None, nonlin_coeffs=NONLIN)
+        nk7 += 1
+        return geom.disassemble(sci)
+
+    def finite(label, tensors):
+        for k, v in tensors.items():
+            if not bool(torch.isfinite(torch.as_tensor(v).double()).all()):
+                raise AssertionError(f"{label}: {k} is not finite")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mbias, bstats = master_bias(torch.stack(
+        [calibrate(400 + i, 0.0, None) for i in range(3)]))
+    flats = torch.stack([calibrate(500 + i, 2e4, mbias) for i in range(3)])
+    norm_sec = (slice(H // 2 - H // 8, H // 2 + H // 8),
+                slice(W // 2 - W // 8, W // 2 + W // 8))
+    mflat, fstats = master_flat(flats, geom, norm_sec)
+    del flats
+    flatst = flat_statistics(geom.assemble(mflat),
+                             torch.zeros((H, W), dtype=torch.uint8,
+                                         device="cuda"),
+                             geom, norm_sec, max(min(H, W) // 8, 8))
+    torch.cuda.synchronize()
+    night_ms = (time.perf_counter() - t0) * 1e3
+    finite("master bias", {"master": mbias, **bstats})
+    finite("master flat", {"master": mflat, **fstats})
+    finite("flat statistics", flatst)
+    g = fstats["gaincf"]
+    gmed = float(fstats["mflat_med"])
+    print(f"calibration night: 3 bias + 3 flat frames calibrated with K7 "
+          f"and non-linearity, masters and flat statistics in "
+          f"{night_ms:.1f} ms; master bias mean "
+          f"{float(bstats['mbias_mean']):.3f} e-, master flat median "
+          f"{gmed:.4f}, GAINCF {float(g.min()):.4f}..{float(g.max()):.4f} "
+          f"(mean {float(g.mean()):.7f}), flat RDIF-MAX "
+          f"{float(flatst['rdif_max']):.4f} [{card}]")
+    if g.shape != (16,) or not bool((g > 0).all()) \
+            or abs(float(g.mean()) - 1.0) > 1e-5:
+        raise AssertionError(f"GAINCF {g.tolist()}")
+    if abs(gmed - 1.0) > 0.1:
+        raise AssertionError(f"master flat median {gmed}")
+
+    fn_k7 = make_reduce_fn(dataclasses.replace(ctx, lac_params=k7))
+    run = K7._run
+    first = {"masters": (mbias, mflat)}
+
+    def record(*args):
+        """K7's driver loop, keeping a copy of the first call's inputs
+        (data, inmask, read noise, sigclip, sigfrac, objlim, niter)."""
+        first.setdefault("k7", tuple(a.clone() if torch.is_tensor(a) else a
+                                     for a in args[:7]))
+        return run(*args)
+
+    for i, seed in enumerate(SEEDS[:2]):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        raw = make_science_device(gen, geom, nstars=4000, ncosmics=800,
+                                  trail=True, nsat=20)[:3]
+        K7._run = record if i == 0 else run
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn_k7(*raw, mbias, mflat, None, xtalk)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            K7._run = run
+        nk7 += 1
+        check_frame(out, ctx, f"science frame {i} (seed {seed}) with K7", ms,
+                    card)
+        mesh, stdm = background_mesh(out["image"], out["mask"] != 0,
+                                     ctx.bkg_boxsize, nsigma=ctx.bkg_nsigma,
+                                     filtersize=ctx.bkg_filtersize)
+        for m, k in ((mesh, "bkg"), (stdm, "bkg_std")):
+            d = float((mini2back(m, (H, W), ctx.bkg_boxsize, use_pallas=True)
+                       - out[k]).abs().max())
+            print(f"science frame {i}: mini2back(use_pallas=True) against "
+                  f"the reduction's {k}: max |diff| {d:.3g} e- at levels up "
+                  f"to {float(out[k].abs().max()):.1f} e- [{card}]")
+            if d > 1e-3:
+                raise AssertionError(f"K3 {k} differs by {d} e-")
+        if i == 0:
+            first.update(raw=raw, mask=out["mask"], meshes=(mesh, stdm),
+                         ncosmics=int(out["stats"]["ncosmics"]))
+        del out, raw
+    if "k7" not in first:
+        raise AssertionError("the use_pallas=True reduction never called K7")
+    return nk7, first
+
+
+def compare_default(ctx, card, xtalk, first):
+    """Phase 6: the first K7 science frame reduced again with the default
+    L.A.Cosmic and the same masters; the two cosmic masks, more than 4
+    px inside the frame, must agree to a Jaccard index of 0.9."""
+    from blackbox_tpu_torch.core import maskbits
+    from blackbox_tpu_torch.pipeline.reduce import make_reduce_fn
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = make_reduce_fn(ctx)(*first.pop("raw"), *first["masters"], None,
+                                xtalk)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check_frame(dense, ctx, f"science frame 0 (seed {SEEDS[0]}) with the "
+                "default L.A.Cosmic", ms, card)
+    a, b = ((m[4:-4, 4:-4] & maskbits.COSMIC) != 0
+            for m in (first.pop("mask"), dense["mask"]))
+    jac = int((a & b).sum()) / max(int((a | b).sum()), 1)
+    print(f"K7 against the default L.A.Cosmic on the same calibrated frame: "
+          f"cosmic-mask Jaccard {jac:.4f} ({int(a.sum())} and {int(b.sum())}"
+          f" px), NCOSMICS {first['ncosmics']} and "
+          f"{int(dense['stats']['ncosmics'])} [{card}]")
+    if jac < 0.9:
+        raise AssertionError(f"cosmic-mask Jaccard {jac}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -622,10 +884,6 @@ def main() -> int:
     kernels.lib()
     print(f"built the CUDA kernels in {time.time() - t0:.1f} s")
 
-    # phase 2: kernels against their plain versions
-    results = check_kernels(card)
-    torch.cuda.empty_cache()
-
     from blackbox_tpu_torch.core.geometry import MEERLICHT
     from blackbox_tpu_torch.ops.cosmics import LACosmicParams
     from blackbox_tpu_torch.ops.detection import DetectParams
@@ -636,9 +894,14 @@ def main() -> int:
             geom, "ML1", lac_params=LACosmicParams(strip_rows=176),
             det_params=DetectParams(max_sources=20000, label_iters=32))
 
+    ctx = ctx_for(MEERLICHT)
+
+    # phase 2: kernels against their plain versions
+    results = check_kernels(card)
+    torch.cuda.empty_cache()
+
     check_tiny(ctx_for, card)
 
-    ctx = ctx_for(MEERLICHT)
     C, ych, xch = MEERLICHT.chan_shape
     mgen = torch.Generator(device="cuda").manual_seed(99)
     mbias = 0.5 * torch.randn((C, ych, xch), generator=mgen, device="cuda")
@@ -658,13 +921,37 @@ def main() -> int:
     # phase 4: raw -> transient catalog
     zero_counts()
     nframes = science_phase(ctx, card, mbias, mflat, xtalk)
-    c4 = read_counts("raw -> transient catalog", card, tuple(counters()))
+    c4 = read_counts("raw -> transient catalog", card,
+                     ("label_propagate", "median_filter",
+                      "gather_slot_windows", "fft_cols_split",
+                      "fused_detect"))
     if c4["fft_cols_split"] != 6 * nframes:
         raise AssertionError(f"fft_cols_split: {c4['fft_cols_split']} "
                              f"launches for {nframes} science frames")
 
+    torch.cuda.empty_cache()
+
+    # phase 5: calibration night, then raw -> catalog through K7, and K3
+    zero_counts()
+    nk7, first = calib_phase(ctx, card, xtalk)
+    c5 = read_counts("calibration night + K7 reduction + K3 planes", card,
+                     ("label_propagate", "gather_slot_windows",
+                      "lacosmic_fused", "upsample_mesh"))
+    if c5["lacosmic_fused"] != 3 * nk7:
+        raise AssertionError(f"lacosmic_fused: {c5['lacosmic_fused']} "
+                             f"iterations for {nk7} frames")
+    if c5["median_filter"]:
+        raise AssertionError("the use_pallas=True path launched K2")
+
+    # phase 6: the default L.A.Cosmic beside K7, then K7 and K3 against
+    # their plain versions on phase 5's inputs
+    compare_default(ctx, card, xtalk, first)
+    torch.cuda.empty_cache()
+    results.append(check_k7(card, first.pop("k7")))
+    results.append(check_k3(card, ctx, *first.pop("meshes")))
+
     for r in results:
-        r["launches"] = c3[r["name"]] + c4[r["name"]]
+        r["launches"] = c3[r["name"]] + c4[r["name"]] + c5[r["name"]]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

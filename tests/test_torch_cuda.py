@@ -266,3 +266,76 @@ def test_science_tiny_card_matches_cpu(dev):
     assert min(int(gs["z_nmatch"]), int(cs["z_nmatch"])) >= 10
     assert abs(float(gs["z_fratio"]) / float(cs["z_fratio"]) - 1) < 1e-5
     assert abs(float(gs["z_fratio"]) / fr - 1) < 0.05
+
+
+def _k7_inputs(dev, shape, seed):
+    """Sky + cosmic hits; a NaN and an inmask block with one-pixel holes
+    (a hole whose pixel is flagged has an all-bad 5x5 neighbourhood);
+    the left third of the frame is constant, so sp == 0 there."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    H, W = shape
+    img = 300.0 + 17.0 * torch.randn(shape, generator=g, device=dev)
+    img[:, : W // 3] = 300.0
+    n = max(H * W // 500, 1)
+    ys = torch.randint(0, H, (n,), generator=g, device=dev)
+    xs = torch.randint(0, W, (n,), generator=g, device=dev)
+    img[ys, xs] += 2e4
+    inm = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for y in range(4, H - 9, 23):
+        for x in range(4, W - 9, 31):
+            inm[y:y + 9, x:x + 9] = True
+            inm[y + 4, x + 4] = False
+    if H > 20 and W > 20:
+        img[H // 2, W // 2] = float("nan")
+    return img, inm
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (70, 130), (300, 1031),
+                                   (264, 1536)])
+@pytest.mark.parametrize("thresholds", ["production", "zero"])
+def test_lacosmic_kernel(dev, shape, thresholds):
+    """K7 over 3 iterations against its plain version: widths that are
+    and are not a multiple of 512, a NaN, all-bad neighbourhoods, and
+    (at zero thresholds) gt ties, sp == 0 == sigclip, on the constant
+    third of the frame."""
+    from blackbox_tpu_torch.ops import lacosmic_fused as K7
+    img, inm = _k7_inputs(dev, shape, sum(shape))
+    kw = (dict(sigclip=15.0, sigfrac=0.01, objlim=3.0)
+          if thresholds == "production"
+          else dict(sigclip=0.0, sigfrac=0.0, objlim=0.0))
+    rdn = torch.tensor(6.0, device=dev)
+    before = K7.lacosmic_fused.launches
+    got = K7.lacosmic_fused(img, inm, rdn, niter=3, **kw)
+    assert K7.lacosmic_fused.launches == before + 3
+    want = K7._lacosmic_plain(img, inm, rdn, niter=3, **kw)
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert got[0].device.type == "cuda"
+
+
+@pytest.mark.parametrize("shape, box, nmesh", [
+    ((200, 650), 128, 1),          # a mesh of one row
+    ((520, 650), 130, 2),
+    ((1024, 1024), 128, 1),
+    ((257, 1031), 64, 3),
+])
+def test_upsample_kernel(dev, shape, box, nmesh):
+    """K3 against its plain version, bit for bit, and against the
+    matmul pair at 1e-3 e- on a 200 e- mesh."""
+    from blackbox_tpu_torch.ops import upsample
+    from blackbox_tpu_torch.ops.background import _catmull_rom_matrix
+    g = torch.Generator(device=dev).manual_seed(box)
+    H, W = shape
+    ny, nx = H // box, W // box
+    meshes = tuple(200.0 + 5.0 * torch.randn((ny, nx), generator=g,
+                                             device=dev)
+                   for _ in range(nmesh))
+    Wy = torch.tensor(_catmull_rom_matrix(H, ny, box), device=dev)
+    Wx = torch.tensor(_catmull_rom_matrix(W, nx, box), device=dev)
+    before = upsample.upsample_mesh.launches
+    got = upsample.upsample_mesh(meshes, Wy, Wx, (H, W))
+    assert upsample.upsample_mesh.launches == before + 1
+    want = upsample._upsample_plain(meshes, Wy, Wx, (H, W))
+    for a, b, m in zip(got, want, meshes):
+        _same(a, b)
+        assert float((a - Wy @ m @ Wx.T).abs().max()) < 1e-3

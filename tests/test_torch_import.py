@@ -33,6 +33,10 @@ SLICE_MODULES = [
     "blackbox_tpu_torch.ops.labeling",
     "blackbox_tpu_torch.ops.filters",
     "blackbox_tpu_torch.ops.cosmics",
+    "blackbox_tpu_torch.ops.lacosmic_fused",
+    "blackbox_tpu_torch.ops.nonlin",
+    "blackbox_tpu_torch.ops.flatstats",
+    "blackbox_tpu_torch.ops.upsample",
     "blackbox_tpu_torch.ops.xtalk",
     "blackbox_tpu_torch.ops.satdet",
     "blackbox_tpu_torch.ops.background",
@@ -44,6 +48,7 @@ SLICE_MODULES = [
     "blackbox_tpu_torch.ops.warp",
     "blackbox_tpu_torch.ops.zogy",
     "blackbox_tpu_torch.ops.transients",
+    "blackbox_tpu_torch.pipeline.masters",
     "blackbox_tpu_torch.pipeline.reduce",
     "blackbox_tpu_torch.pipeline.subtract",
     "blackbox_tpu_torch.synth.device",

@@ -152,8 +152,10 @@ def _check_reduce(jfn, tfn, ctx, seed):
 
 
 def test_reduce_refuses_unported_stages():
-    """The stages this slice leaves out raise; the PSF stages, which it
-    ports, are held to the JAX package by test_reduce_with_psf_matches_jax."""
+    """The stage the port leaves out (the tiled trail segments) raises,
+    and so do non-linearity coefficients that are not (C, D); the
+    correction itself is held to the JAX package by
+    test_torch_calib.py::test_calibrate_detector_nonlin_matches_jax."""
     ctx = ReduceContext.from_defaults(TINY)
     gen = torch.Generator().manual_seed(0)
     from blackbox_tpu_torch.synth.device import make_science_device
@@ -164,7 +166,7 @@ def test_reduce_refuses_unported_stages():
     with pytest.raises(NotImplementedError, match="detect_sat_segments"):
         fn(chan, osv, osh, None, None, None, None)
     from blackbox_tpu_torch.pipeline.reduce import calibrate_detector
-    with pytest.raises(NotImplementedError, match="non-linearity"):
+    with pytest.raises(ValueError, match="nonlin_correct"):
         calibrate_detector(dataclasses.replace(ctx, correct_nonlin=True),
                            chan, osv, osh, None, None, None, None,
                            nonlin_coeffs=np.zeros(3, np.float32))

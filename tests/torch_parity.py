@@ -69,3 +69,23 @@ def tiny_frame(seed: int):
     mbias = (0.5 * rng.standard_normal(TINY.chan_shape)).astype(np.float32)
     xtalk = rng.uniform(-2e-4, 2e-4, (C, C)).astype(np.float32)
     return chan, osv, osh, mbias, mflat, xtalk, truth
+
+
+def cosmic_scene(seed: int, H: int, W: int, ncr: int, nstars: int = 0):
+    """A float32 e- scene for the L.A.Cosmic tests: Poisson sky (300
+    e-), Gaussian stars (sigma 1.5 px) and 1-2 px cosmic hits."""
+    rng = np.random.default_rng(seed)
+    img = rng.poisson(300.0, (H, W)).astype(np.float32)
+    yy, xx = np.mgrid[:H, :W]
+    for _ in range(nstars):
+        y, x = rng.uniform(5, H - 5), rng.uniform(5, W - 5)
+        img += (rng.uniform(2e3, 4e4) / (2 * np.pi * 1.5 ** 2) * np.exp(
+            -((yy - y) ** 2 + (xx - x) ** 2) / (2 * 1.5 ** 2))).astype(
+                np.float32)
+    cy = rng.integers(3, H - 3, ncr)
+    cx = rng.integers(3, W - 3, ncr)
+    for x, y, a in zip(cx, cy, rng.uniform(3000, 30000, ncr)):
+        img[y, x] += a
+        if a > 15000:
+            img[y, x + 1] += 0.6 * a
+    return img
