@@ -55,8 +55,9 @@ _SIGNATURES = {
     #  sigclip, sigclip * sigfrac, objlim, stream)
     "bbt_lacosmic_iter": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                           _F, _P),
-    # (meshes, Wy, WxT, out, n, H, W, ny, nx, stream)
-    "bbt_upsample_mesh": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (meshes, Wy, Wx, out, up scratch, bands scratch, n, H, W, ny, nx,
+    #  stream)
+    "bbt_upsample_mesh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

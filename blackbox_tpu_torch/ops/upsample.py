@@ -5,8 +5,11 @@
 card and its plain version :func:`_upsample_plain` on the CPU.  The
 plain version is the kernel's arithmetic: both products accumulated in
 ascending index order from zero, one rounded multiply and one rounded
-add a term, so the two agree bit for bit.  Against a matmul (XLA's, or
-``torch.matmul``) only the order of the float32 sums differs.
+add a term.  The kernel skips the terms whose weight is zero (outside
+each row's :func:`weight_bands`) where the other factor is finite,
+which changes at most the sign of a zero, so the two agree bit for bit
+up to that sign.  Against a matmul (XLA's, or ``torch.matmul``) only
+the order of the float32 sums differs.
 """
 
 from __future__ import annotations
@@ -24,7 +27,9 @@ def _operands(meshes, Wy, Wx):
         x = x if isinstance(x, torch.Tensor) else torch.tensor(x)
         return x.to(device=dev, dtype=torch.float32)
 
-    return torch.stack([f32(x) for x in meshes]), f32(Wy), f32(Wx)
+    m = (f32(meshes[0])[None] if len(meshes) == 1
+         else torch.stack([f32(x) for x in meshes]))
+    return m.contiguous(), f32(Wy), f32(Wx)
 
 
 def _upsample_plain(meshes, Wy, Wx, out_shape):
@@ -53,7 +58,8 @@ def upsample_mesh(meshes, Wy, Wx, out_shape):
     out_shape : (H, W)
 
     Returns a tuple of (H, W) float32 maps.  CPU meshes take the plain
-    version; CUDA meshes run the kernel (one launch for all meshes).
+    version; CUDA meshes run the kernel (one call for all meshes: two
+    CUDA launches, ``Wy @ mesh`` and the bands, then the planes).
     """
     if meshes[0].device.type == "cpu":
         return _upsample_plain(meshes, Wy, Wx, out_shape)
@@ -64,16 +70,34 @@ def upsample_mesh(meshes, Wy, Wx, out_shape):
         raise ValueError(f"upsample_mesh: weights {tuple(wy.shape)}, "
                          f"{tuple(wx.shape)} do not fit meshes {(ny, nx)} "
                          f"and output {(H, W)}")
-    wxt = wx.T.contiguous()
+    wx = wx.contiguous()
     wy = wy.contiguous()
-    kernels.require_cuda("upsample_mesh", m, wy, wxt)
+    kernels.require_cuda("upsample_mesh", m, wy, wx)
     out = torch.empty((n, H, W), dtype=torch.float32, device=m.device)
+    # scratch of the kernel's first launch: Wy @ mesh, and the band of
+    # nonzero weights of each row of Wx (weight_bands)
+    up = torch.empty((n, H, nx), dtype=torch.float32, device=m.device)
+    bands = torch.empty((W, 2), dtype=torch.int32, device=m.device)
     with torch.cuda.device(m.device):
         kernels.check(kernels.lib().bbt_upsample_mesh(
-            m.data_ptr(), wy.data_ptr(), wxt.data_ptr(), out.data_ptr(), n,
-            H, W, ny, nx, kernels.stream_of(m)), "upsample_mesh")
+            m.data_ptr(), wy.data_ptr(), wx.data_ptr(), out.data_ptr(),
+            up.data_ptr(), bands.data_ptr(), n, H, W, ny, nx,
+            kernels.stream_of(m)), "upsample_mesh")
     upsample_mesh.launches += 1
     return tuple(out.unbind(0))
 
 
 upsample_mesh.launches = 0
+
+
+def weight_bands(w: torch.Tensor) -> torch.Tensor:
+    """(n, 2) int64 bands [lo, hi] of the nonzero entries of each row of
+    an (n, m) weight matrix (a NaN counts as nonzero; a row of zeros
+    gives lo = m, hi = -1): the rule by which the kernel limits its sums
+    (``csrc/upsample.cu``), which finds the bands on the card itself.
+    Summing only the band, in ascending order, gives the dense sum up to
+    the sign of a zero wherever the other factor is finite."""
+    nz = w != 0
+    idx = torch.arange(w.shape[1], device=w.device)
+    return torch.stack([torch.where(nz, idx, w.shape[1]).amin(1),
+                        torch.where(nz, idx, -1).amax(1)], 1)

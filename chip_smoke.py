@@ -10,10 +10,11 @@ Phases, each printing its own lines:
 2. Kernels against their plain PyTorch versions on the card, bit for
    bit, at the main paths' shapes: label propagation (K1) on a 10560²
    star field at 32 steps, the k = 3, 5, 7 medians (K2) of a 10560²
-   frame, 20000 32² + 1024 96² window gathers (K4) from an f32 and an
-   int32 frame with n_active < N, the split-real FFT (K6) of a
-   10752 x 10752 pair forward and inverse, and the fused detection (K5)
-   in its detection form (the star field, 9 taps, a std map, an
+   frame and of a copy with 1e-4 of its pixels NaN, 20000 32² + 1024
+   96² window gathers (K4) from an f32 and an int32 frame with
+   n_active < N, the split-real FFT (K6) of a 10752 x 10752 pair
+   forward and inverse, and the fused detection (K5) in its detection
+   form (the star field, 9 taps, a std map, an
    exclusion, 32 steps) and its transient form (|x|, no taps, 48
    steps).  Both times come from CUDA events; each kernel's bound is
    worked out from the bytes it must move and the operations it must
@@ -67,11 +68,13 @@ import torch
 
 SEEDS = (12345, 12346, 12347)
 IMG_ATOL_REL = 1e-5     # image atol per e- of overscan level (see tests)
-# one H100 SXM, NVIDIA's data sheet: HBM3 rate and float32 rate outside
-# the tensor cores; int32 runs on half as many lanes per SM as float32
+# one H100 SXM, NVIDIA's data sheet and Hopper white paper: the HBM3
+# rate; 128 float32 lanes an SM, so 33.5e12 float32 instructions a
+# second (the sheet's 67 TFLOP/s counts an FMA as two flops; a min, a
+# max, a multiply or an add is one instruction); 64 int32 lanes an SM
 HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-I32_OPS_PER_S = 33.5e12
+F32_INSTR_PER_S = 33.5e12
+I32_INSTR_PER_S = 16.75e12
 FRATIO = 1.3            # the reference is made 1.3x deeper (bench.py)
 NTRANS = 20             # transients injected into the gated scene
 
@@ -101,9 +104,11 @@ def cuda_ms(fn, reps: int = 3) -> float:
 def bound(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
     """The least time the card could take for the work, in ms, and what
     bounds it: the bytes moved at the HBM rate against the operations
-    at their peak rates."""
+    at their instruction rates.  Operations count instructions: an
+    unfused min, max, multiply or add is one (the kernels contract no
+    FMA)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (f32_ops / F32_OPS_PER_S + i32_ops / I32_OPS_PER_S) * 1e3
+    t_ops = (f32_ops / F32_INSTR_PER_S + i32_ops / I32_INSTR_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -179,23 +184,34 @@ def check_kernels(card):
     seg = torch.where(mask, labeling.label_propagate(lab0, 32), 0)
     del lab0, idx, mask
 
-    # K2: k = 3, 5, 7; the entry's times are one detection round's mix
-    # (one 3x3, two 5x5, one 7x7 median)
+    # K2: k = 3, 5, 7, on the star field and on a copy with 1e-4 of its
+    # pixels NaN; the entry's times are one detection round's mix (one
+    # 3x3, two 5x5, one 7x7 median)
     t, tp, tb, err = {}, {}, {}, 0.0
+    holes = img.clone()
+    holes[torch.rand((H, W), generator=gen, device="cuda") < 1e-4] = np.nan
+    th, tw = filters.MEDIAN_TILE
     for k in filters.MEDIAN_KS:
-        err = max(err, max_abs_err(filters.median_filter(img, k),
-                                   filters._median_plain(img, k, 264)))
+        for frame in (img, holes):
+            err = max(err, max_abs_err(filters.median_filter(frame, k),
+                                       filters._median_plain(frame, k, 264)))
         t[k] = cuda_ms(lambda: filters.median_filter(img, k))
         tp[k] = cuda_ms(lambda: filters._median_plain(img, k, 264), reps=1)
-        # per pixel: one column sort (a min and a max per comparator)
-        # and the pruned merge network; f32 in and out
+        # per pixel: the min/max of the tile program the kernel runs; f32
+        # in and out.  The design it replaced: a column sort and the
+        # pruned sorted-column merge
+        ops, _, _ = filters.tile_median_ops(k, th, tw)
+        per_px = filters.comparator_cost(ops) / (th * tw)
         merge, _ = filters.sc_select_ops(k, (k * k // 2,))
-        per_px = (2 * len(filters.transposition_pairs(k))
-                  + sum(2 if op[0] == "ce" else 1 for op in merge))
-        tb[k] = bound(8.0 * H * W, f32_ops=float(per_px) * H * W)
-        print(f"K2 median_filter k={k} {H}x{W}: bit-exact, kernel "
-              f"{t[k]:.3f} ms, plain {tp[k]:.3f} ms, bound {tb[k][0]:.3f} "
-              f"ms ({tb[k][1]}) [{card}]")
+        old_px = (2 * len(filters.transposition_pairs(k))
+                  + filters.comparator_cost(merge))
+        tb[k] = bound(8.0 * H * W, f32_ops=per_px * H * W)
+        print(f"K2 median_filter k={k} {H}x{W} (and with "
+              f"{int(torch.isnan(holes).sum())} NaN pixels): bit-exact, "
+              f"kernel {t[k]:.3f} ms, plain {tp[k]:.3f} ms, bound "
+              f"{tb[k][0]:.3f} ms ({tb[k][1]}; {per_px:g} min/max a pixel, "
+              f"{old_px} in the sorted-column design) [{card}]")
+    del holes
     mix = (3, 5, 5, 7)
     results.append(entry(
         "median_filter", "blackbox_tpu_torch/csrc/medians.cu",
@@ -327,13 +343,13 @@ def k7_ops_per_pixel() -> float:
     medians, the Laplacian and noise model, the gt tests and
     dilations, and the masked clean (a 25-value transposition sort, the
     blend and good count, the two 25-term rank picks)."""
-    from blackbox_tpu_torch.ops.filters import (sc_select_ops,
+    from blackbox_tpu_torch.ops.filters import (comparator_cost,
+                                                sc_select_ops,
                                                 transposition_pairs)
 
     def median(k):
         merge, _ = sc_select_ops(k, (k * k // 2,))
-        return (2 * len(transposition_pairs(k))
-                + sum(2 if op[0] == "ce" else 1 for op in merge))
+        return 2 * len(transposition_pairs(k)) + comparator_cost(merge)
 
     stage1 = median(5) + median(3) + 24      # lap 17, noise 2, s 2, clamp
     stage2 = median(5) + median(7) + 20      # sp, noise, f, good, c1
@@ -391,10 +407,13 @@ def check_k3(card, ctx, mesh, stdm):
     plain = cuda_ms(lambda: upsample._upsample_plain((mesh,), Wy, Wx,
                                                      (H, W)), reps=1)
     lib = cuda_ms(lambda: torch.linalg.multi_dot([Wy, mesh, Wx.T]))
-    # weights and mesh read, the plane written; 2 nx operations an
-    # output pixel plus the (H, nx) first product
+    # weights and mesh read, the plane written; a multiply and an add
+    # for each nonzero weight of a band: the (H, nx) first product, then
+    # every output pixel
+    width = [int((b[:, 1] - b[:, 0] + 1).clamp(min=0).sum())
+             for b in (upsample.weight_bands(Wy), upsample.weight_bands(Wx))]
     bnd = bound(4.0 * (H * W + H * ny + W * nx + ny * nx),
-                f32_ops=2.0 * nx * H * W + 2.0 * ny * nx * H)
+                f32_ops=2.0 * (width[0] * nx + width[1] * H))
     print(f"K3 upsample_mesh {ny}x{nx} -> {H}x{W} (two meshes): bit-exact, "
           f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library multi_dot "
           f"{lib:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")

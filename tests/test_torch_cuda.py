@@ -43,6 +43,33 @@ def test_median_kernel(dev, shape, k):
     assert filters.median_filter.launches == before + 1
 
 
+@pytest.mark.parametrize("shape", [(64, 128), (257, 1031), (300, 1024)])
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("fill", ["sprinkled", "plateau"])
+def test_median_kernel_special_values(dev, shape, k, fill):
+    """K2 on frames with 1% NaN, +inf and -inf each, or with constant
+    plateaus and few-valued ties, at widths that do and do not take the
+    16-byte path, and from an address that is not 16-byte aligned."""
+    from blackbox_tpu_torch.ops import filters
+    H, W = shape
+    g = torch.Generator(device=dev).manual_seed(H + k)
+    img = 100 + 20 * torch.randn(shape, generator=g, device=dev)
+    if fill == "sprinkled":
+        for v in (float("nan"), float("inf"), -float("inf")):
+            hit = torch.rand(shape, generator=g, device=dev) < 0.01
+            img = torch.where(hit, torch.full_like(img, v), img)
+    else:
+        img[:, : W // 3] = 5.0
+        img[H // 2:, W // 2:] = torch.round(img[H // 2:, W // 2:] / 20)
+        img[: H // 4] = -1.0
+    want = filters._median_plain(img, k, 64)
+    _same(filters.median_filter(img, k), want)
+    buf = torch.empty(H * W + 1, device=dev)
+    moved = buf[1:].view(H, W)
+    moved.copy_(img)
+    _same(filters.median_filter(moved, k), want)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("iters", [1, 24, 32, 40])
 def test_label_kernel(dev, shape, iters):
@@ -339,3 +366,46 @@ def test_upsample_kernel(dev, shape, box, nmesh):
     for a, b, m in zip(got, want, meshes):
         _same(a, b)
         assert float((a - Wy @ m @ Wx.T).abs().max()) < 1e-3
+
+
+def _weights(kind, n_out, n_mesh, g, dev):
+    """Catmull-Rom weights (bands of 4), random weights in bands of 6
+    with a zero inside each (the union of 4 columns' bands stays within
+    the kernel's 8 registers), or dense random weights (the full range,
+    the kernel's global-memory path)."""
+    from blackbox_tpu_torch.ops.background import _catmull_rom_matrix
+    if kind == "catmull":
+        return torch.tensor(_catmull_rom_matrix(n_out, n_mesh,
+                                                n_out // n_mesh), device=dev)
+    w = torch.randn((n_out, n_mesh), generator=g, device=dev)
+    if kind == "dense":
+        return w
+    lo = (torch.arange(n_out, device=dev) * (n_mesh - 6)) // max(n_out - 1, 1)
+    j = torch.arange(n_mesh, device=dev)[None]
+    band = (j >= lo[:, None]) & (j < lo[:, None] + 6) & (j != lo[:, None] + 2)
+    return torch.where(band, w, 0.0)
+
+
+@pytest.mark.parametrize("W", [1028, 1030])
+@pytest.mark.parametrize("weights", ["catmull", "banded", "dense"])
+@pytest.mark.parametrize("mesh_kind", ["finite", "inf", "nan"])
+def test_upsample_kernel_bands(dev, W, weights, mesh_kind):
+    """K3's band-limited sums against its plain version, bit for bit:
+    bands wider than 4 and the dense range, meshes with an inf or a NaN
+    (0 * inf must give NaN where the dense sum has it), widths that do
+    and do not take the 16-byte path."""
+    from blackbox_tpu_torch.ops import upsample
+    g = torch.Generator(device=dev).manual_seed(W)
+    H, ny, nx = 300, 7, 12
+    mesh = 200.0 + 5.0 * torch.randn((ny, nx), generator=g, device=dev)
+    if mesh_kind != "finite":
+        mesh[3, 5] = float(mesh_kind)
+    other = 100.0 + torch.randn((ny, nx), generator=g, device=dev)
+    Wy = _weights(weights, H, ny, g, dev)
+    Wx = _weights(weights, W, nx, g, dev)
+    got = upsample.upsample_mesh((mesh, other), Wy, Wx, (H, W))
+    want = upsample._upsample_plain((mesh, other), Wy, Wx, (H, W))
+    for a, b in zip(got, want):
+        _same(a, b)
+    assert bool(torch.isfinite(got[1]).all())
+    assert bool(torch.isfinite(got[0]).all()) == (mesh_kind == "finite")

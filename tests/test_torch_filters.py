@@ -85,3 +85,64 @@ def test_kernel_wrapper_never_falls_back():
     img = torch.zeros((16, 16), device="meta")
     with pytest.raises(ValueError, match="median_filter"):
         tf.median_filter(img, 5)
+
+
+def _patches(k, case, n=3000, seed=0):
+    """n random (k+th-1) x (k+tw-1) patches of the kernel's tile, as a
+    (rows, cols, n) tensor: normal values, few-valued ties, constant
+    plateaus, or normal values with +-inf or NaN sprinkled in."""
+    th, tw = tf.MEDIAN_TILE
+    shape = (k + th - 1, k + tw - 1, n)
+    g = torch.Generator().manual_seed(seed + k)
+    p = torch.randn(shape, generator=g)
+    if case == "ties":
+        p = torch.randint(0, 3, shape, generator=g).float()
+    elif case == "plateau":
+        p[..., : n // 2] = 7.0
+        p[: k // 2 + 1, :, n // 2:] = -2.0        # a plateau over half a window
+    elif case in ("inf", "nan"):
+        hit = torch.rand(shape, generator=g) < 0.01
+        sign = torch.where(torch.rand(shape, generator=g) < 0.5, -1.0, 1.0)
+        p = torch.where(hit, sign * float("inf") if case == "inf"
+                        else torch.full(shape, float("nan")), p)
+        if case == "inf":
+            p[..., :100] = float("inf")          # windows of +inf only
+    return p
+
+
+@pytest.mark.parametrize("case", ["normal", "ties", "plateau", "inf", "nan"])
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_tile_program_is_a_median(k, case):
+    """The CUDA kernel's tile program (tile_median_ops), run through
+    apply_ops on CPU tensors of patches, gives each window's
+    k*k//2-th order statistic (torch.sort's), and NaN exactly where the
+    window holds a NaN."""
+    th, tw = tf.MEDIAN_TILE
+    p = _patches(k, case)
+    ops, outs, _ = tf.tile_median_ops(k, th, tw)
+    v = tf.apply_ops([p[y, x] for y in range(p.shape[0])
+                      for x in range(p.shape[1])], ops)
+    for i, wire in enumerate(outs):
+        r, c = divmod(i, tw)
+        win = p[r:r + k, c:c + k].reshape(k * k, -1)
+        has_nan = torch.isnan(win).any(0)
+        want = torch.sort(win, 0).values[k * k // 2]
+        got = v[wire]
+        assert torch.equal(torch.isnan(got), has_nan), (r, c)
+        assert torch.equal(got[~has_nan], want[~has_nan]), (r, c)
+    if case == "nan":
+        assert bool(has_nan.any())
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_tile_program_costs_less(k):
+    """Fewer min/max a pixel than the sorted-column design it replaced
+    on the card (a column sort a pixel plus the pruned merge), and the
+    header states the program's count."""
+    th, tw = tf.MEDIAN_TILE
+    ops, _, _ = tf.tile_median_ops(k, th, tw)
+    merge, _ = tf.sc_select_ops(k, (k * k // 2,))
+    old = 2 * len(tf.transposition_pairs(k)) + tf.comparator_cost(merge)
+    assert tf.comparator_cost(ops) / (th * tw) < old
+    assert (f"// {tf.comparator_cost(ops)} min/max for {th * tw} outputs"
+            in tf.median_network_source())

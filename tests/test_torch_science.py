@@ -29,6 +29,16 @@ float64 statistic.  The transient catalog's integer fields and peak
 pixels are exact (the scene has no |Scorr| pixel whose side of the
 6-sigma threshold the rounding moves), its Scorr and Fpsferr samples
 at the maps' tolerances and its other floats at rtol 1e-3.
+
+One allowance on the peak pixels (``peak_ties``): a transient's peak is
+its segment's largest |Scorr| pixel, and where two neighbouring pixels
+nearly tie, float32 rounding picks either.  The JAX package's own
+choice there varies with what else ran in its process (one transient's
+x was 169 in some runs and 170 in others).  So where the JAX package's
+|Scorr| at the port's pixel is within the Scorr tolerance of its value
+at its own pixel, and the two pixels are neighbours, the port's pixel
+stands, and the values sampled at the peak are compared with the JAX
+maps at that pixel.  At most one transient may need this.
 """
 
 import numpy as np
@@ -64,7 +74,42 @@ SHIFT = (3, -2)
 STEP = 32
 TRANS = (0.53, 0.47, 3.0e4)      # x, y as frame fractions; flux [e-]
 SCORR_RTOL = 0.05                # see the module note
+SCORR_ATOL = 3e-3
 VS_ATOL = 2e-2                   # of max Fpsferr**2; the same
+# catalog fields sampled at the peak pixel, with the map each comes from
+PEAK_SAMPLES = {"scorr_peak": "Scorr", "flux_psf": "Fpsf",
+                "fluxerr_psf": "Fpsferr", "d_peak": "D"}
+
+
+def peak_ties(got_xy, want_xy, scorr):
+    """Indices of the transients whose peak pixels differ by a near tie.
+
+    ``got_xy`` and ``want_xy`` are (x, y) arrays of the port's and the
+    JAX package's peak pixels, ``scorr`` the JAX package's Scorr map.
+    Two pixels tie where they are neighbours (each coordinate within
+    1 px) and the map's |Scorr| at the port's pixel is within the Scorr
+    tolerance of its value at the JAX pixel.  Raises, naming the
+    pixels, on any other difference and where more than one transient
+    ties."""
+    ties = []
+    for i, (gx, gy, wx, wy) in enumerate(zip(*got_xy, *want_xy)):
+        g, w = (int(gx), int(gy)), (int(wx), int(wy))
+        if g == w:
+            continue
+        a, b = abs(float(scorr[g[1], g[0]])), abs(float(scorr[w[1], w[0]]))
+        near = max(abs(g[0] - w[0]), abs(g[1] - w[1])) <= 1
+        if not (near and abs(a - b) <= SCORR_ATOL + SCORR_RTOL * b):
+            raise AssertionError(
+                f"transient {i}: peak (x, y) = {g} in the port, {w} in the "
+                f"JAX package, |Scorr| there {a:.6g} and {b:.6g}: not a "
+                "near tie of neighbouring pixels")
+        ties.append((i, g, w))
+    if len(ties) > 1:
+        raise AssertionError(
+            f"{len(ties)} transients need the 1-px tie allowance, at most "
+            "one may: " + "; ".join(f"transient {i}: port {g}, JAX {w}"
+                                    for i, g, w in ties))
+    return [i for i, _, _ in ties]
 
 
 def _ctx():
@@ -167,17 +212,57 @@ def test_science_back_matches_jax(backs):
         assert_exact(gc[k], wc[k], k)
     live = wc["valid"] | wc["vetted_out"]
     assert live.any()
+    gl = {k: n(v)[live] for k, v in gc.items()}
+    wl = {k: np.array(v[live]) for k, v in wc.items()}
+    ties = peak_ties((gl["x"], gl["y"]), (wl["x"], wl["y"]), want["Scorr"])
+    for i in ties:
+        x, y = int(gl["x"][i]), int(gl["y"][i])
+        wl["x"][i], wl["y"][i] = gl["x"][i], gl["y"][i]
+        for k, src in PEAK_SAMPLES.items():
+            wl[k][i] = want[src][y, x]
     for k in ("x", "y"):
-        assert_exact(n(gc[k])[live], wc[k][live], k)
+        assert_exact(gl[k], wl[k], k)
     for k in ("scorr_peak", "scorr_peak_abs"):
-        assert_close(n(gc[k])[live], wc[k][live], rtol=SCORR_RTOL,
-                     atol=3e-3, what=k)
-    fe_w = wc["fluxerr_psf"][live].astype(np.float64) ** 2
-    assert_close(n(gc["fluxerr_psf"])[live].astype(np.float64) ** 2, fe_w,
+        assert_close(gl[k], wl[k], rtol=SCORR_RTOL, atol=SCORR_ATOL, what=k)
+    fe_w = wl["fluxerr_psf"].astype(np.float64) ** 2
+    assert_close(gl["fluxerr_psf"].astype(np.float64) ** 2, fe_w,
                  rtol=0, atol=VS_ATOL * float(v_w.max()), what="fluxerr_psf")
     for k in ("elong", "flux_psf", "d_peak"):
-        assert_close(n(gc[k])[live], wc[k][live], rtol=1e-3, atol=3e-3,
-                     what=k)
+        assert_close(gl[k], wl[k], rtol=1e-3, atol=3e-3, what=k)
+
+
+def _tied_scorr():
+    """A Scorr map whose peak pixels (169, 40) and (170, 40) nearly tie
+    (98.0 and 97.9 sigma), on a peak falling to 60 sigma 2 px away."""
+    scorr = np.zeros((80, 320), np.float32)
+    scorr[38:43, 167:173] = 30.0
+    scorr[39:42, 168:172] = 60.0
+    scorr[40, 169], scorr[40, 170] = 98.0, 97.9
+    return scorr
+
+
+@pytest.mark.parametrize("port_x, ok", [(169.0, True), (170.0, True),
+                                        (171.0, False)])
+def test_peak_tie_allowance(port_x, ok):
+    """The peak-pixel check of test_science_back_matches_jax on a tie
+    built on purpose: the port's pixel 1 px from the JAX package's at a
+    near tie is accepted, a 2 px shift is rejected whatever the map
+    holds there, and so are two ties."""
+    scorr = _tied_scorr()
+    scorr[40, 171] = 97.95           # as high as the tie, but 2 px away
+    want = (np.array([169.0, 30.0]), np.array([40.0, 60.0]))
+    got = (np.array([port_x, 30.0]), want[1])
+    if ok:
+        assert peak_ties(got, want, scorr) == ([] if port_x == 169 else [0])
+    else:
+        with pytest.raises(AssertionError, match=r"\(171, 40\)"):
+            peak_ties(got, want, scorr)
+    scorr[60, 30] = scorr[60, 31] = 50.0
+    with pytest.raises(AssertionError, match="2 transients need"):
+        peak_ties((np.array([170.0, 31.0]), want[1]), want, scorr)
+    scorr[40, 170] = 80.0            # no longer a tie: 18% below the peak
+    with pytest.raises(AssertionError, match="not a near tie"):
+        peak_ties((np.array([170.0, 30.0]), want[1]), want, scorr)
 
 
 def test_science_back_as_accurate_as_jax(backs, scene):

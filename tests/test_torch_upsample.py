@@ -74,3 +74,73 @@ def test_plain_version_order_of_sums():
     got = upsample._upsample_plain((t(mesh),), Wy, Wx, (5, 6))[0]
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.dtype == torch.float32
+
+
+@pytest.mark.parametrize("n_out, n_mesh, box", [
+    (132, 4, 33), (320, 9, 33),          # TINY at its 33-px box
+    (10560, 41, 256),                    # MeerLICHT at 256 px
+])
+def test_weight_bands_of_catmull_rom(n_out, n_mesh, box):
+    """The kernel's band rule on the Catmull-Rom weights: at most 4
+    entries a row, every nonzero entry inside its row's band."""
+    w = t(_catmull_rom_matrix(n_out, n_mesh, box))
+    b = upsample.weight_bands(w).numpy()
+    width = b[:, 1] - b[:, 0] + 1
+    assert width.min() >= 1 and width.max() <= 4, (width.min(), width.max())
+    idx = np.arange(n_mesh)
+    outside = (idx < b[:, :1]) | (idx > b[:, 1:])
+    assert not (w.numpy()[outside] != 0).any()
+
+
+def _banded_reference(mesh, Wy, Wx, full_range=True):
+    """The kernel's sums, written out: each product summed over its
+    row's band of nonzero weights, ascending, one rounded multiply and
+    add a term; with ``full_range``, over the full range where the
+    other factor is not all finite (the mesh for the first product, the
+    row of Wy @ mesh for the second)."""
+    def bands(w, full):
+        b = upsample.weight_bands(t(w)).numpy()
+        return [(0, w.shape[1] - 1) if f else (lo, hi)
+                for (lo, hi), f in zip(b, full)]
+
+    H, W = Wy.shape[0], Wx.shape[0]
+    full = full_range and not np.isfinite(mesh).all()
+    up = np.zeros((H, mesh.shape[1]), np.float32)
+    for y, (lo, hi) in enumerate(bands(Wy, [full] * H)):
+        for i in range(lo, hi + 1):
+            up[y] = up[y] + Wy[y, i] * mesh[i]
+    out = np.zeros((H, W), np.float32)
+    row_full = ~np.isfinite(up).all(1) & full_range
+    for x, (lo, hi) in enumerate(bands(Wx, [False] * W)):
+        col = np.zeros(H, np.float32)
+        for j in range(mesh.shape[1]):
+            take = row_full | (lo <= j <= hi)
+            col = np.where(take, col + up[:, j] * Wx[x, j], col)
+        out[:, x] = col
+    return out
+
+
+@pytest.mark.parametrize("case", ["finite", "inf", "nan"])
+def test_band_limited_sum_is_the_dense_sum(case):
+    """The band-limited ascending sum equals the plain (dense) version
+    bit for bit, up to the sign of a zero: on a finite mesh, and on a
+    mesh with one inf or NaN, where the sums take the full range and
+    give NaN exactly where the dense sum has it (0 * inf)."""
+    H, W, box = 160, 96, 32
+    rng = np.random.default_rng(5)
+    mesh = (200.0 + 5.0 * rng.standard_normal((H // box, W // box))).astype(
+        np.float32)
+    mesh[1, 2] = {"finite": mesh[1, 2], "inf": np.inf, "nan": np.nan}[case]
+    Wy = _catmull_rom_matrix(H, H // box, box)
+    Wx = _catmull_rom_matrix(W, W // box, box)
+    want = upsample._upsample_plain((t(mesh),), Wy, Wx, (H, W))[0].numpy()
+    got = _banded_reference(mesh, Wy, Wx)
+    np.testing.assert_array_equal(got, want)     # NaN == NaN, -0 == +0
+    if case == "finite":
+        assert np.isfinite(want).all()
+    else:
+        # every output has a 0 * inf, 0 * NaN or w * inf term, far
+        # outside the bad node's 4-node reach, which the band alone
+        # would skip
+        assert not np.isfinite(want).any()
+        assert np.isfinite(_banded_reference(mesh, Wy, Wx, False)).any()
