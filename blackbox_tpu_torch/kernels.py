@@ -35,18 +35,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # (in, out, H, W, steps, big, stream)
-    "bbt_label_propagate": (_P, _P, _I, _I, _I, _I, _P),
+    # (in, out, work scratch, H, W, steps, big, stream)
+    "bbt_label_propagate": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (in, out, H, W, k, stream)
     "bbt_median_filter": (_P, _P, _I, _I, _I, _P),
     # (im0, im1, im2, out0, out1, out2, n_img, y0, x0, n_active, N, H, W,
     #  size, stream)
     "bbt_gather_windows": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                            _I, _I, _P),
-    # (xr, xi, yr, yi, tmp_r, tmp_i, twa_re, twa_im, twb_re, twb_im, w,
+    # (xr, xi, yr, yi, tmp_r, tmp_i, twa_re, twa_im, twb_re, twb_im,
     #  N1, N2, k, L, inverse, scale, stream)
-    "bbt_fft_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _I, _I, _F, _P),
+    "bbt_fft_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _F, _P),
     # (img, std, excl, taps (host), ntaps, nsigma, absval, iters, H, W,
     #  seg, count, stream)
     "bbt_fused_detect": (_P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P, _P,

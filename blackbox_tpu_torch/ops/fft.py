@@ -138,6 +138,78 @@ def _device_tables(N: int, inverse: bool, device: str):
             torch.from_numpy(w32).to(dev), w32.tolist())
 
 
+def dft_constants(N2: int, inverse: bool) -> np.ndarray:
+    """The (N2, N2, 2) float32 DFT_N2 constants of :func:`_tables`
+    (w[n2][r] as (re, im)), the values the kernel multiplies by."""
+    w21 = _tables(8 * N2, inverse)[4]
+    return np.stack([w21.real, w21.imag], -1).astype(np.float32)
+
+
+def dft_pair_masks(N2: int, inverse: bool) -> list[int]:
+    """For each input i of the DFT_N2, a bit mask over the output pairs
+    (j, N2 - j), j = 1 .. (N2 - 1) // 2: bit 16 + j is set when the
+    constant the pair's second output multiplies input i by equals the
+    first's bit for bit, and bit j when it is, bit for bit, the first's
+    conjugate (the same real part, the negated imaginary part).  The
+    kernel then shares the pair's term, or its four products, which
+    changes no rounding: (-b)·x is -(b·x) and a - (-p) is a + p."""
+    w = dft_constants(N2, inverse).view(np.uint32)
+    neg = np.uint32(0x80000000)
+    masks = []
+    for i in range(N2):
+        m = 0
+        for j in range(1, (N2 + 1) // 2):
+            a, b = ((w[j][i], w[N2 - j][i]) if inverse
+                    else (w[i][j], w[i][N2 - j]))
+            if a[0] == b[0] and a[1] == b[1]:
+                m |= 1 << (16 + j)
+            elif a[0] == b[0] and a[1] == (b[1] ^ neg):
+                m |= 1 << j
+        masks.append(m)
+    return masks
+
+
+def dft_constants_source() -> str:
+    """Text of ``csrc/fft_constants.cuh``: the DFT_N2 constants of
+    :func:`dft_constants` for every odd factor and both directions as
+    exact hexadecimal float literals in ``__constant__`` arrays, read by
+    ``dft_c<N2, inverse>(i)`` (element i of w flattened as (re, im)
+    pairs), and the masks of :func:`dft_pair_masks` as
+    ``dft_pairs<N2, inverse>(i)``.  The kernel calls both with indices
+    that unrolling makes constant."""
+    out = ["// Generated by "
+           "blackbox_tpu_torch.ops.fft.dft_constants_source();",
+           "// tests/test_torch_fft.py holds this file equal to it and its",
+           "// values equal to ops/fft.py::_tables bit for bit.  Each table",
+           "// is w[n2][r] as (re, im) pairs, row-major: the float64",
+           "// exp(-+2 pi i n2 r / N2) rounded to float32.",
+           "#pragma once", "",
+           "template <int N2, bool kInverse>",
+           "__device__ __forceinline__ float dft_c(int i);",
+           "template <int N2, bool kInverse>",
+           "__device__ __forceinline__ unsigned dft_pairs(int i);", ""]
+    for q in _ODD[:-1][::-1]:
+        for inverse in (False, True):
+            name = f"kDft{q}{'Inv' if inverse else 'Fwd'}"
+            inv = "true" if inverse else "false"
+            vals = [float(v).hex() + "f"
+                    for v in dft_constants(q, inverse).reshape(-1)]
+            masks = dft_pair_masks(q, inverse)
+            out.append(f"__constant__ float {name}[{len(vals)}] = {{")
+            for i in range(0, len(vals), 3):
+                out.append("    " + ", ".join(vals[i:i + 3]) + ",")
+            out += ["};",
+                    "template <> __device__ __forceinline__ float",
+                    f"dft_c<{q}, {inv}>(int i) {{ return {name}[i]; }}",
+                    "template <> __device__ __forceinline__ unsigned",
+                    f"dft_pairs<{q}, {inv}>(int i) {{",
+                    "  switch (i) {"]
+            out += [f"    case {i}: return {m:#x}u;"
+                    for i, m in enumerate(masks[:-1])]
+            out += [f"    default: return {masks[-1]:#x}u;", "  }", "}", ""]
+    return "\n".join(out)
+
+
 def _cmul(vr, vi, tr, ti):
     """(vr + i·vi) · (tr + i·ti), each product and sum rounded."""
     return vr * tr - vi * ti, vr * ti + vi * tr
@@ -249,9 +321,10 @@ def fft_cols_split(xr, xi, inverse: bool = False, scale: float = 1.0):
 def _fft_cols_cuda(xr, xi, inverse: bool, scale: float):
     N, L = xr.shape
     N1, N2, k = plan(N)
-    twa_re, twa_im, twb_re, twb_im, w32, _ = _device_tables(
-        N, inverse, str(xr.device))
-    kernels.require_cuda("fft_cols_split", xr, xi, twa_re, w32)
+    # the DFT_N2 constants are compiled in (csrc/fft_constants.cuh)
+    twa_re, twa_im, twb_re, twb_im = _device_tables(
+        N, inverse, str(xr.device))[:4]
+    kernels.require_cuda("fft_cols_split", xr, xi, twa_re)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     tmp_r = torch.empty_like(xr)
@@ -261,9 +334,8 @@ def _fft_cols_cuda(xr, xi, inverse: bool, scale: float):
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             tmp_r.data_ptr(), tmp_i.data_ptr(), twa_re.data_ptr(),
             twa_im.data_ptr(), twb_re.data_ptr(), twb_im.data_ptr(),
-            w32.data_ptr(), N1, N2, k, L, int(inverse),
-            float(np.float32(scale)), kernels.stream_of(xr)),
-            "fft_cols_split")
+            N1, N2, k, L, int(inverse), float(np.float32(scale)),
+            kernels.stream_of(xr)), "fft_cols_split")
     fft_cols_split.launches += 1
     return yr, yi
 

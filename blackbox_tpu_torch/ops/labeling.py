@@ -16,7 +16,8 @@ import torch.nn.functional as F
 
 from blackbox_tpu_torch import kernels
 
-_KERNEL_STEPS = 32      # steps per kernel launch (the kernel's halo)
+_KERNEL_STEPS = 64      # steps per kernel launch (the kernel's halo)
+_MIN_TILE = 16          # the kernel's smallest tile side (its work list)
 
 
 def euler_count(mask: torch.Tensor) -> torch.Tensor:
@@ -58,7 +59,7 @@ def label_propagate(lab: torch.Tensor, iters: int) -> torch.Tensor:
         sentinel ``H*W + 2`` for background.
     Returns the propagated labels (background still BIG).  CPU tensors
     take the plain version; CUDA tensors run the kernel
-    (``csrc/labelprop.cu``, at most 32 steps per launch, chained).
+    (``csrc/labelprop.cu``, at most 64 steps per launch, chained).
     """
     if lab.device.type == "cpu":
         return _label_propagate_plain(lab, iters)
@@ -68,6 +69,9 @@ def label_propagate(lab: torch.Tensor, iters: int) -> torch.Tensor:
     kernels.require_cuda("label_propagate", lab)
     H, W = lab.shape
     big = H * W + 2
+    # the kernel's list of tiles that hold foreground, and its count
+    work = torch.empty(1 + -(-H // _MIN_TILE) * -(-W // _MIN_TILE),
+                       dtype=torch.int32, device=lab.device)
     src = lab
     done = 0
     with torch.cuda.device(lab.device):
@@ -75,8 +79,8 @@ def label_propagate(lab: torch.Tensor, iters: int) -> torch.Tensor:
             steps = min(_KERNEL_STEPS, iters - done)
             dst = torch.empty_like(lab)
             kernels.check(kernels.lib().bbt_label_propagate(
-                src.data_ptr(), dst.data_ptr(), H, W, steps, big,
-                kernels.stream_of(lab)), "label_propagate")
+                src.data_ptr(), dst.data_ptr(), work.data_ptr(), H, W, steps,
+                big, kernels.stream_of(lab)), "label_propagate")
             label_propagate.launches += 1
             src = dst
             done += steps

@@ -9,16 +9,19 @@ Phases, each printing its own lines:
    CUDA kernels are built from ``blackbox_tpu_torch/csrc``.
 2. Kernels against their plain PyTorch versions on the card, bit for
    bit, at the main paths' shapes: label propagation (K1) on a 10560²
-   star field at 32 steps, the k = 3, 5, 7 medians (K2) of a 10560²
-   frame and of a copy with 1e-4 of its pixels NaN, 20000 32² + 1024
-   96² window gathers (K4) from an f32 and an int32 frame with
+   star field at 32 steps and on a |Scorr| > 6-like map at 48 steps
+   (``extract_transients``' form), the k = 3, 5, 7 medians (K2) of a
+   10560² frame and of a copy with 1e-4 of its pixels NaN, 20000 32² +
+   1024 96² window gathers (K4) from an f32 and an int32 frame with
    n_active < N, the split-real FFT (K6) of a 10752 x 10752 pair
-   forward and inverse, and the fused detection (K5) in its detection
-   form (the star field, 9 taps, a std map, an
+   forward and inverse (each pass's two launches, step A and radix-2,
+   timed apart under ``torch.profiler``), and the fused detection (K5)
+   in its detection form (the star field, 9 taps, a std map, an
    exclusion, 32 steps) and its transient form (|x|, no taps, 48
    steps).  Both times come from CUDA events; each kernel's bound is
    worked out from the bytes it must move and the operations it must
-   do at those shapes (``bound``).
+   do at those shapes (``bound``).  The times of K1's and K6's
+   previous designs are printed beside theirs (``PREVIOUS_MS``).
 3. The reduction (``make_reduce_fn``, production configuration with the
    PSF stages on) of a TINY frame on the card held against the same
    frame reduced on the CPU with the plain versions, then of three full
@@ -50,7 +53,8 @@ Phases, each printing its own lines:
 
 The launch counters are zeroed just before each of phases 3, 4 and 5
 and read just after it: every kernel of a phase's path must have moved,
-K6 must show 6 launches per science frame, K7 3 per frame it
+K1 must show 1 launch per catalog frame and 2 per science frame (its
+48 transient steps are one launch), K6 6 per science frame, K7 3 per frame it
 calibrates (it counts iterations, five CUDA launches each) and K2 none
 in phase 5.  Any failure raises: the script then exits non-zero and
 prints no ok line.
@@ -75,6 +79,16 @@ IMG_ATOL_REL = 1e-5     # image atol per e- of overscan level (see tests)
 HBM_BYTES_PER_S = 3.35e12
 F32_INSTR_PER_S = 33.5e12
 I32_INSTR_PER_S = 16.75e12
+# The previous designs of K1 (one haloed tile a block, every step over
+# the whole tile, at most 32 steps a launch) and K6 (step A with its
+# constants in shared memory, nine shared-memory passes of radix-2) on
+# one H100 80GB HBM3 at 700 W, printed beside this run's (PERF.md §6):
+# K1 on the star field (chip_smoke.py) and on the transient map, K6's
+# passes and each pass's two launches (kernel_profile.py)
+PREVIOUS_MS = {"K1 star field": 6.152, "K1 transient map": 3.538,
+          "K6 forward": 3.479, "K6 inverse": 3.441,
+          "K6 forward step A": 1.123, "K6 forward radix-2": 2.329,
+          "K6 inverse step A": 1.156, "K6 inverse radix-2": 2.290}
 FRATIO = 1.3            # the reference is made 1.3x deeper (bench.py)
 NTRANS = 20             # transients injected into the gated scene
 
@@ -99,6 +113,25 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_times(fn):
+    """Device ms by kernel name of one call of ``fn`` after a warm one,
+    from torch.profiler; empty if the profiler saw no device work."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = (getattr(e, "self_device_time_total", 0)
+              or getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            out[e.key] = (us / 1e3, e.count)
+    return out
 
 
 def bound(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
@@ -149,40 +182,86 @@ def star_field(H, W, gen, nstars=4000, sky=300.0):
                                                    device=dev)
 
 
+def star_mask(img):
+    """The detection stage's threshold of a star field: the 3 px matched
+    filter above 1.5 sigma of the 300 e- sky."""
+    from blackbox_tpu_torch.ops.detection import matched_filter
+    filt, _ = matched_filter(img - 300.0, 3.0)
+    return filt > 1.5 * np.sqrt(300.0)
+
+
+def transient_map(H, W, gen, nblobs=40, sigma=2.0):
+    """A |Scorr| > 6 map as extract_transients thresholds it: unit noise
+    plus ``nblobs`` Gaussian blobs of either sign, peaks 8..60 sigma."""
+    dev = gen.device
+    scorr = torch.randn((H, W), generator=gen, device=dev)
+    r = 4 * int(np.ceil(sigma))
+    ys = torch.randint(r, H - r, (nblobs,), generator=gen, device=dev)
+    xs = torch.randint(r, W - r, (nblobs,), generator=gen, device=dev)
+    amp = torch.empty(nblobs, device=dev).uniform_(8.0, 60.0, generator=gen)
+    amp = torch.where(torch.rand(nblobs, generator=gen, device=dev) < 0.5,
+                      amp, -amp)
+    d = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
+    g = torch.exp(-(d[:, None] ** 2 + d[None, :] ** 2) / (2 * sigma ** 2))
+    for y, x, a in zip(ys.tolist(), xs.tolist(), amp.tolist()):
+        scorr[y - r:y + r + 1, x - r:x + r + 1] += a * g
+    return scorr.abs() > 6.0
+
+
+def label_start(mask):
+    """The labels label_components starts from: flat index + 1 on the
+    mask, BIG = H*W + 2 elsewhere."""
+    H, W = mask.shape
+    idx = torch.arange(1, H * W + 1, dtype=torch.int32,
+                       device=mask.device).reshape(H, W)
+    return torch.where(mask, idx, H * W + 2)
+
+
 def check_kernels(card):
     """Phase 2: each kernel against its plain version at full shapes."""
     from blackbox_tpu_torch.core.geometry import MEERLICHT
     from blackbox_tpu_torch.ops import filters, labeling, windows
-    from blackbox_tpu_torch.ops.detection import matched_filter
 
     H, W = MEERLICHT.red_shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     img = star_field(H, W, gen)
     results = []
 
-    # K1: the thresholded star field of the detection stage, 32 steps
-    filt, _ = matched_filter(img - 300.0, 3.0)
-    mask = filt > 1.5 * np.sqrt(300.0)
-    del filt
-    idx = torch.arange(1, H * W + 1, dtype=torch.int32,
-                       device="cuda").reshape(H, W)
-    lab0 = torch.where(mask, idx, H * W + 2)
-    err = max_abs_err(labeling.label_propagate(lab0, 32),
-                      labeling._label_propagate_plain(lab0, 32))
-    ms = cuda_ms(lambda: labeling.label_propagate(lab0, 32))
-    plain = cuda_ms(lambda: labeling._label_propagate_plain(lab0, 32))
-    nfg = int(mask.sum())
-    # int32 labels in and out; 8 mins a step for each foreground pixel
-    bnd = bound(8.0 * H * W, i32_ops=8.0 * 32 * nfg)
-    print(f"K1 label_propagate {H}x{W} 32 steps ({nfg / (H * W):.4f}"
-          f" of pixels set): bit-exact, kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
-    results.append(entry("label_propagate",
-                         "blackbox_tpu_torch/csrc/labelprop.cu",
-                         "blackbox_tpu/pallas/labelprop.py:52", err, ms,
-                         plain, *bnd))
+    # K1 in the two forms of the main paths: the thresholded star field
+    # of the detection stage at 32 steps, and a |Scorr| > 6 map at 48,
+    # as extract_transients calls it; the entry's times are the star
+    # field's, the transient form's are under transient_*
+    mask = star_mask(img)
+    lab0 = label_start(mask)
+    tgen = torch.Generator(device="cuda").manual_seed(6)
+    k1 = {}
+    for form, lab, steps in (("star field", lab0, 32),
+                             ("transient map",
+                              label_start(transient_map(H, W, tgen)), 48)):
+        err = max_abs_err(labeling.label_propagate(lab, steps),
+                          labeling._label_propagate_plain(lab, steps))
+        ms = cuda_ms(lambda: labeling.label_propagate(lab, steps))
+        plain = cuda_ms(lambda: labeling._label_propagate_plain(lab, steps),
+                        reps=1)
+        nfg = int((lab < H * W + 2).sum())
+        # int32 labels in and out; 8 mins a step for each foreground pixel
+        bnd = bound(8.0 * H * W, i32_ops=8.0 * steps * nfg)
+        k1[form] = (err, ms, plain, bnd)
+        print(f"K1 label_propagate {form} {H}x{W} {steps} steps "
+              f"({nfg / (H * W):.6f} of pixels set): bit-exact, kernel "
+              f"{ms:.3f} ms (previous design: "
+              f"{PREVIOUS_MS['K1 ' + form]:.3f}), plain {plain:.3f} ms, "
+              f"bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
+    err, ms, plain, bnd = k1["star field"]
+    t_err, t_ms, t_plain, t_bnd = k1["transient map"]
+    results.append(dict(entry("label_propagate",
+                              "blackbox_tpu_torch/csrc/labelprop.cu",
+                              "blackbox_tpu/pallas/labelprop.py:52",
+                              max(err, t_err), ms, plain, *bnd),
+                        transient_ms=t_ms, transient_plain_ms=t_plain,
+                        transient_bound_ms=t_bnd[0]))
     seg = torch.where(mask, labeling.label_propagate(lab0, 32), 0)
-    del lab0, idx, mask
+    del lab0, mask
 
     # K2: k = 3, 5, 7, on the star field and on a copy with 1e-4 of its
     # pixels NaN; the entry's times are one detection round's mix (one
@@ -252,6 +331,20 @@ def check_kernels(card):
     return results
 
 
+def dft_ops(N2: int) -> int:
+    """Float instructions of one column's DFT_N2 in csrc/fft.cu: output
+    0's terms at 8 each (4 products, 2 adds, 2 into the sums), then for
+    each pair of outputs and input, 16 for two terms of their own, 10
+    for one shared term and 12 for shared products
+    (ops/fft.py::dft_pair_masks; the same counts both ways)."""
+    from blackbox_tpu_torch.ops.fft import dft_pair_masks
+    ops = 8 * N2
+    for m in dft_pair_masks(N2, False):
+        for j in range(1, N2 // 2 + 1):
+            ops += 12 if m >> j & 1 else 10 if m >> (16 + j) & 1 else 16
+    return ops
+
+
 def check_fft(card):
     """K6 at the science path's shape: one (10752, 10752) column pass
     forward and one inverse with scale 1/N (the entry's times are the
@@ -273,21 +366,41 @@ def check_fft(card):
         ms.append(cuda_ms(lambda: fft.fft_cols_split(xr, xi, inverse, s)))
         plain.append(cuda_ms(lambda: fft._fft_cols_plain(xr, xi, inverse,
                                                           s), reps=1))
-        print(f"K6 fft_cols_split {N}x{L} (N1 {N1}, N2 {N2}) "
-              f"{'inverse' if inverse else 'forward'}: bit-exact, kernel "
-              f"{ms[-1]:.3f} ms, plain {plain[-1]:.3f} ms [{card}]")
+        way = "inverse" if inverse else "forward"
+        print(f"K6 fft_cols_split {N}x{L} (N1 {N1}, N2 {N2}) {way}: "
+              f"bit-exact, kernel {ms[-1]:.3f} ms (previous design: "
+              f"{PREVIOUS_MS['K6 ' + way]:.3f}), plain {plain[-1]:.3f} ms "
+              f"[{card}]")
+    # each pass's two launches apart, from one profiled call of each
+    split = device_times(lambda: (fft.fft_cols_split(xr, xi),
+                                  fft.fft_cols_split(xr, xi, True, 1.0 / N)))
+    launch_ms = {}
+    for name, (t, n) in split.items():
+        if "step_a" not in name and "radix2" not in name:
+            continue
+        way = ("inverse" if "step_a_inv" in name or "<true" in name
+               else "forward")
+        part = "step A" if "step_a" in name else "radix-2"
+        launch_ms[f"{way} {part}"] = t / n
+    for key in ("forward step A", "forward radix-2", "inverse step A",
+                "inverse radix-2"):
+        got = (f"{launch_ms[key]:.3f} ms" if key in launch_ms
+               else "not measured (no device events)")
+        print(f"K6 {key} launch: {got} (previous design: "
+              f"{PREVIOUS_MS['K6 ' + key]:.3f}) [{card}]")
     lib = cuda_ms(lambda: torch.fft.fft(torch.complex(xr, xi), dim=0))
-    # two planes in, two out; step A: N2 complex multiply-adds and a
-    # twiddle per point, then k radix-2 stages of an add/sub and a
-    # twiddle per point
+    # two planes in, two out; step A: the DFT_N2's instructions a
+    # point, as the kernel shares them (dft_ops), and a twiddle; then k
+    # radix-2 stages of an add/sub and a twiddle per point
     pts = float(N) * L
-    ops = pts * (8.0 * N2 + 6.0) + pts * k * 8.0
+    ops = pts * (dft_ops(N2) / N2 + 6.0) + pts * k * 8.0
     bnd = bound(16.0 * pts, f32_ops=ops)
     print(f"K6 library torch.fft.fft of the same {N}x{L} pair: {lib:.3f} ms"
           f"; bound {bnd[0]:.3f} ms ({bnd[1]}) per pass [{card}]")
-    return entry("fft_cols_split", "blackbox_tpu_torch/csrc/fft.cu",
-                 "blackbox_tpu/pallas/fft.py:164", err, sum(ms) / 2,
-                 sum(plain) / 2, *bnd, library_ms=lib)
+    return dict(entry("fft_cols_split", "blackbox_tpu_torch/csrc/fft.cu",
+                      "blackbox_tpu/pallas/fft.py:164", err, sum(ms) / 2,
+                      sum(plain) / 2, *bnd, library_ms=lib),
+                forward_ms=ms[0], inverse_ms=ms[1], launch_ms=launch_ms)
 
 
 def check_detect(card, img):
@@ -935,6 +1048,9 @@ def main() -> int:
     c3 = read_counts("raw -> catalog", card, ("label_propagate",
                                               "median_filter",
                                               "gather_slot_windows"))
+    if c3["label_propagate"] != len(SEEDS):
+        raise AssertionError(f"label_propagate: {c3['label_propagate']} "
+                             f"launches for {len(SEEDS)} catalog frames")
     torch.cuda.empty_cache()
 
     # phase 4: raw -> transient catalog
@@ -944,6 +1060,12 @@ def main() -> int:
                      ("label_propagate", "median_filter",
                       "gather_slot_windows", "fft_cols_split",
                       "fused_detect"))
+    # one K1 launch for the reference's catalog, then two a science
+    # frame (the catalog's 32 steps, the transients' 48 in one launch),
+    # none in the frame where BBTPU_PALLAS_DETECT=1 routes both to K5
+    if c4["label_propagate"] != 1 + 2 * (nframes - 1):
+        raise AssertionError(f"label_propagate: {c4['label_propagate']} "
+                             f"launches for {nframes} science frames")
     if c4["fft_cols_split"] != 6 * nframes:
         raise AssertionError(f"fft_cols_split: {c4['fft_cols_split']} "
                              f"launches for {nframes} science frames")

@@ -84,6 +84,48 @@ def test_label_kernel(dev, shape, iters):
           labeling._label_propagate_plain(lab0, iters))
 
 
+def _label_mask(kind, shape, g, dev):
+    H, W = shape
+    m = torch.zeros(shape, dtype=torch.bool, device=dev)
+    if kind == "random":
+        m = torch.rand(shape, generator=g, device=dev) > 0.45
+    elif kind == "rectangle":               # wider than 2 x 64 steps
+        m[20:H - 30, 15:W - 40] = True
+    elif kind == "trail":                   # a long diagonal, 2 px wide
+        i = torch.arange(min(H, W) - 1, device=dev)
+        m[i, i] = True
+        m[i, i + 1] = True
+    elif kind == "foreground":
+        m[:] = True
+    elif kind == "sparse":                  # a few blobs, most tiles empty
+        for y, x in ((40, 50), (41, 300), (200, 420), (290, 5)):
+            m[max(y - 3, 0):y + 4, max(x - 5, 0):x + 5] = True
+    return m
+
+
+@pytest.mark.parametrize("shape", [(300, 457), (260, 460)])
+@pytest.mark.parametrize("iters", [1, 16, 32, 48, 64])
+@pytest.mark.parametrize("kind", ["random", "rectangle", "trail",
+                                  "background", "foreground", "sparse"])
+def test_label_kernel_cases(dev, kind, iters, shape):
+    """K1's tiles, work list, shrinking region and stop rule, bit for bit
+    against the plain version: blobs wider than 2 x iters, which never
+    go still, empty and full frames, a sparse map, on frames that are
+    not a multiple of either tile side, with rows of 4-byte and of
+    16-byte alignment; one launch up to 64 steps."""
+    from blackbox_tpu_torch.ops import labeling
+    g = torch.Generator(device=dev).manual_seed(iters)
+    mask = _label_mask(kind, shape, g, dev)
+    H, W = shape
+    idx = torch.arange(1, H * W + 1, dtype=torch.int32,
+                       device=dev).reshape(H, W)
+    lab0 = torch.where(mask, idx, H * W + 2)
+    before = labeling.label_propagate.launches
+    _same(labeling.label_propagate(lab0, iters),
+          labeling._label_propagate_plain(lab0, iters))
+    assert labeling.label_propagate.launches == before + 1
+
+
 @pytest.mark.parametrize("size", [1, 32, 96])
 def test_gather_kernel(dev, size):
     from blackbox_tpu_torch.ops import windows
@@ -149,6 +191,25 @@ def test_fft_kernel(dev, N, inverse):
         before = fft.fft_cols_split.launches
         got = fft.fft_cols_split(xr, xi, inverse, scale)
         assert fft.fft_cols_split.launches == before + 1
+        ref = fft._fft_cols_plain(xr, xi, inverse, scale)
+        _same(got[0], ref[0])
+        _same(got[1], ref[1])
+
+
+@pytest.mark.parametrize("N", [168, 96, 224, 1024, 6144, 4096, 8192])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_kernel_block_shapes(dev, N, inverse):
+    """K6's radix blocks (C = 16, 8, 4, 2, 1 columns for N1 <= 512,
+    1024, 2048, 4096, 8192), the short last group of every k mod 3, with
+    and without step A (N2 = 1; N2 = 3, 7 and 21 with it), at column
+    counts around each block width."""
+    from blackbox_tpu_torch.ops import fft
+    g = torch.Generator(device=dev).manual_seed(N + inverse)
+    for L in (1, 3, 7, 8, 9, 15, 16, 17, 33):
+        xr = torch.randn((N, L), generator=g, device=dev)
+        xi = torch.randn((N, L), generator=g, device=dev)
+        scale = 1.0 / N if inverse else 1.0
+        got = fft.fft_cols_split(xr, xi, inverse, scale)
         ref = fft._fft_cols_plain(xr, xi, inverse, scale)
         _same(got[0], ref[0])
         _same(got[1], ref[1])

@@ -96,3 +96,99 @@ def test_fft_cols_refuses_bad_input():
     with pytest.raises(TypeError, match="float32"):
         tfft.fft_cols_split(torch.zeros(96, 4, dtype=torch.float64),
                             torch.zeros(96, 4, dtype=torch.float64))
+
+
+def test_dft_constants_header_is_generated():
+    """csrc/fft_constants.cuh is dft_constants_source() verbatim."""
+    import pathlib
+    path = (pathlib.Path(tfft.__file__).resolve().parents[1] / "csrc"
+            / "fft_constants.cuh")
+    assert path.read_text() == tfft.dft_constants_source()
+
+
+@pytest.mark.parametrize("N", [96, 160, 224, 352, 168, 10752])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dft_constants_equal_tables(N, inverse):
+    """The literals the kernel compiles in are the f32 rounding of
+    _tables' DFT_N2 constants for every size, bit for bit, and the
+    JAX package's tables round the same float64 values."""
+    import re
+    N1, N2, k = tfft.plan(N)
+    src = tfft.dft_constants_source()
+    name = f"kDft{N2}{'Inv' if inverse else 'Fwd'}"
+    body = re.search(name + r"\[\d+\] = \{(.*?)\};", src, re.S).group(1)
+    lits = np.array([float.fromhex(v.strip().rstrip("f"))
+                     for v in body.split(",") if v.strip()], np.float32)
+    w21 = tfft._tables(N, inverse)[4]
+    want = np.stack([w21.real, w21.imag], -1).astype(np.float32)
+    assert lits.view(np.uint32).tolist() == \
+        want.reshape(-1).view(np.uint32).tolist()
+    jw = jfft._tables(N, inverse)[4]
+    assert np.array_equal(np.stack([jw.real, jw.imag], -1).astype(
+        np.float32).view(np.uint32), want.view(np.uint32))
+
+
+def _dft_paired(xs, N2, inverse):
+    """The kernel's DFT_N2 (csrc/fft.cu dft_first / dft_pair): output 0
+    term by term, then outputs j and N2 - j together, sharing a term or
+    its products where dft_pair_masks allows."""
+    c = tfft.dft_constants(N2, inverse)
+    masks = tfft.dft_pair_masks(N2, inverse)
+    W = (lambda n, r: c[r][n]) if inverse else (lambda n, r: c[n][r])
+
+    def term(w, x):
+        wr, wi = (torch.tensor(v) for v in w)
+        return wr * x[0] - wi * x[1], wr * x[1] + wi * x[0]
+
+    def add(acc, t):
+        return t if acc is None else (acc[0] + t[0], acc[1] + t[1])
+
+    out = [None] * N2
+    for n, x in enumerate(xs):
+        out[0] = add(out[0], term(W(n, 0), x))
+        for j in range(1, N2 // 2 + 1):
+            t = term(W(n, j), x)
+            if masks[n] >> j & 1:
+                wr, wi = (torch.tensor(v) for v in W(n, j))
+                p1, p2, p3, p4 = wr * x[0], wi * x[1], wr * x[1], wi * x[0]
+                t, u = (p1 - p2, p3 + p4), (p1 + p2, p3 - p4)
+            elif masks[n] >> (16 + j) & 1:
+                u = t
+            else:
+                u = term(W(n, N2 - j), x)
+            out[j] = add(out[j], t)
+            out[N2 - j] = add(out[N2 - j], u)
+    return out
+
+
+@pytest.mark.parametrize("N2", [3, 5, 7, 11, 21])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dft_pairs_keep_every_rounding(N2, inverse):
+    """The kernel's shared products (dft_pair_masks) give the plain
+    DFT_N2's bits: on random values, signed zeros, infinities, NaN and
+    values near the float32 limits."""
+    rng = np.random.default_rng(N2 + 100 * inverse)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 3e38, -1e-45],
+                       np.float32)
+    xs = []
+    for _ in range(N2):
+        v = rng.standard_normal((2, 4096)).astype(np.float32)
+        v[:, :len(special)] = special
+        v[:, 7:64] = rng.choice(special, (2, 57))
+        xs.append(v)
+    # columns with one nonzero part of one input: there the tiny
+    # imaginary parts of the near-real constants reach the sums
+    for c in range(256, 1024):
+        for n, v in enumerate(xs):
+            v[:, c] = 0.0
+            if n == c % N2:
+                v[c % 2, c] = rng.standard_normal()
+    xs = [(t(v[0]), t(v[1])) for v in xs]
+    w = tfft.dft_constants(N2, inverse).tolist()
+    want = tfft._dft_n2(xs, w, inverse)
+    got = _dft_paired(xs, N2, inverse)
+    for g, e in zip(got, want):
+        for a, b in zip(g, e):
+            same = (a.view(torch.int32) == b.view(torch.int32)) | (
+                torch.isnan(a) & torch.isnan(b))
+            assert bool(same.all())

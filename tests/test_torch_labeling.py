@@ -71,3 +71,74 @@ def test_kernel_wrapper_never_falls_back():
     lab = torch.zeros((8, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="label_propagate"):
         tl.label_propagate(lab, 4)
+
+
+def _min3x3(a, big):
+    p = torch.nn.functional.pad(a, (1, 1, 1, 1), value=big)
+    out = p[1:-1, 1:-1]
+    for dy in (0, 1, 2):
+        for dx in (0, 1, 2):
+            out = torch.minimum(out, p[dy:dy + a.shape[0], dx:dx + a.shape[1]])
+    return out
+
+
+def _schedule_model(lab, steps):
+    """The schedule of csrc/labelprop.cu in plain PyTorch: T x T tiles
+    (T = 32 up to 60 steps, else 16); a tile with no foreground is all
+    BIG; any other is loaded with a ``steps``-wide halo (BIG outside the
+    frame) into two buffers, and step s updates, from one buffer into
+    the other, only the foreground within steps - 1 - s of the interior
+    (entries outside keep what the buffer held), stopping after the
+    first step that changes nothing there."""
+    H, W = lab.shape
+    big = H * W + 2
+    T = 32 if steps <= 60 else 16
+    S = T + 2 * steps
+    out = torch.full_like(lab, big)
+    padded = torch.nn.functional.pad(torch.clamp(lab, max=big),
+                                     (steps, steps + T, steps, steps + T),
+                                     value=big)
+    for y0 in range(0, H, T):
+        for x0 in range(0, W, T):
+            if not bool((lab[y0:y0 + T, x0:x0 + T] < big).any()):
+                continue
+            a = padded[y0:y0 + S, x0:x0 + S].clone()
+            b = a.clone()
+            fg = a < big
+            for s in range(steps):
+                act = torch.zeros_like(fg)
+                act[s + 1:S - 1 - s, s + 1:S - 1 - s] = \
+                    fg[s + 1:S - 1 - s, s + 1:S - 1 - s]
+                b = torch.where(act, _min3x3(a, big), b)
+                changed = bool((b != a)[act].any())
+                a, b = b, a
+                if not changed:
+                    break
+            h, w = min(T, H - y0), min(T, W - x0)
+            out[y0:y0 + h, x0:x0 + w] = a[steps:steps + h, steps:steps + w]
+    return out
+
+
+def _schedule_mask(kind, rng, H, W, steps):
+    if kind == "random":
+        return rng.random((H, W)) > 0.45
+    if kind == "blobs":
+        return _blobby_mask(rng, H, W, nblobs=12)
+    m = np.zeros((H, W), bool)          # wider than 2 x steps: never still
+    m[5:H - 3, 7:W - 2] = True
+    m[H // 2, :] = False
+    return m
+
+
+@pytest.mark.parametrize("steps", [1, 16, 48, 64])
+@pytest.mark.parametrize("kind", ["random", "blobs", "rectangle"])
+def test_kernel_schedule_model_matches_plain(rng, steps, kind):
+    """The K1 kernel's tiles, halo, shrinking region and stop rule, run
+    as a PyTorch model, give the plain version's labels exactly, on
+    frames that are not a multiple of the tile."""
+    H, W = 75, 141
+    mask = _schedule_mask(kind, rng, H, W, steps)
+    idx = np.arange(1, H * W + 1, dtype=np.int32).reshape(H, W)
+    lab0 = t(np.where(mask, idx, np.int32(H * W + 2)))
+    want = tl._label_propagate_plain(lab0, steps)
+    assert torch.equal(_schedule_model(lab0, steps), want)
