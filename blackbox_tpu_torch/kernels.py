@@ -48,13 +48,14 @@ _SIGNATURES = {
     "bbt_fft_cols": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                      _I, _F, _P),
     # (img, std, excl, taps (host), ntaps, nsigma, absval, iters, H, W,
-    #  seg, count, stream)
-    "bbt_fused_detect": (_P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P, _P,
-                         _P),
-    # (clean, inm, crm, rdn, out_clean, out_crm, scratch, Hp, Wp, halo,
-    #  sigclip, sigclip * sigfrac, objlim, stream)
-    "bbt_lacosmic_iter": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                          _F, _P),
+    #  det scratch, work scratch, seg, count, stream)
+    "bbt_fused_detect": (_P, _P, _P, _P, _I, _F, _I, _I, _I, _I, _P, _P, _P,
+                         _P, _P),
+    # (clean, Hs, Ws, inm, H, W, crm, rdn, out_clean, out_crm, scratch,
+    #  counts, total, Hp, Wp, halo, sigclip, sigclip * sigfrac, objlim,
+    #  stream)
+    "bbt_lacosmic_iter": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _F, _F, _F, _P),
     # (meshes, Wy, Wx, out, up scratch, bands scratch, n, H, W, ny, nx,
     #  stream)
     "bbt_upsample_mesh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from blackbox_tpu_torch import kernels
-from blackbox_tpu_torch.ops.labeling import (_label_propagate_plain,
+from blackbox_tpu_torch.ops.labeling import (_KERNEL_STEPS, _MIN_TILE,
+                                             _label_propagate_plain,
                                              label_components)
 from blackbox_tpu_torch.ops.windows import gather_slot_windows
 
@@ -163,7 +164,9 @@ def fused_detect(image, bkg_std, excl, taps, nsigma: float,
     Returns (seg (H, W) int32 — 0 background, root flat index + 1
     labels — and n, the int32 root count as a 0-d device tensor),
     identical to :func:`label_segments` on the thresholded map.  CPU
-    tensors take the plain version; CUDA tensors run ``csrc/detect.cu``.
+    tensors take the plain version; CUDA tensors run ``csrc/detect.cu``
+    (a scan that thresholds and lists the tiles with a detection, then
+    the label steps on the listed tiles; 0 to 64 steps).
     """
     if image.device.type == "cpu":
         return _fused_detect_plain(image, bkg_std, excl, taps, nsigma,
@@ -172,22 +175,35 @@ def fused_detect(image, bkg_std, excl, taps, nsigma: float,
     img = image.to(torch.float32).contiguous()
     std = (None if bkg_std is None
            else bkg_std.to(torch.float32).contiguous())
-    exc = None if excl is None else excl.to(torch.uint8).contiguous()
+    exc = None
+    if excl is not None:
+        # a bool mask is read as its bytes (0/1), without a copy
+        exc = (excl if excl.dtype == torch.bool else excl != 0)
+        exc = exc.contiguous().view(torch.uint8)
     ops = [t for t in (img, std, exc) if t is not None]
     kernels.require_cuda("fused_detect", *ops)
     if any(t.shape != (H, W) for t in ops):
         raise ValueError("fused_detect: image, std and excl must share "
                          "one (H, W) shape")
-    seg = torch.empty((H, W), dtype=torch.int32, device=img.device)
-    count = torch.zeros((), dtype=torch.int32, device=img.device)
+    if not 0 <= iters <= _KERNEL_STEPS:
+        raise ValueError(f"fused_detect: {iters} label steps; the kernel "
+                         f"takes 0 to {_KERNEL_STEPS}")
+    dev = img.device
+    seg = torch.empty((H, W), dtype=torch.int32, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    # the scan's detection map and its list of tiles with a detection
+    det = torch.empty((H, W), dtype=torch.uint8, device=dev)
+    work = torch.empty(1 + -(-H // _MIN_TILE) * -(-W // _MIN_TILE),
+                       dtype=torch.int32, device=dev)
     ntaps = 0 if taps is None else len(taps)
     taps_host = kernels.host_floats(taps) if ntaps else None
-    with torch.cuda.device(img.device):
+    with torch.cuda.device(dev):
         kernels.check(kernels.lib().bbt_fused_detect(
             img.data_ptr(), None if std is None else std.data_ptr(),
             None if exc is None else exc.data_ptr(), taps_host, ntaps,
-            float(nsigma), int(absval), int(iters), H, W, seg.data_ptr(),
-            count.data_ptr(), kernels.stream_of(img)), "fused_detect")
+            float(nsigma), int(absval), int(iters), H, W, det.data_ptr(),
+            work.data_ptr(), seg.data_ptr(), count.data_ptr(),
+            kernels.stream_of(img)), "fused_detect")
     fused_detect.launches += 1
     return seg, count
 

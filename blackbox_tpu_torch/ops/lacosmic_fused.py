@@ -22,8 +22,9 @@ stencil pipeline over the edge-extended (Hp, Wp) arrays evaluated with
 any halo of at least 9: the TPU kernel's tiling plays no part.
 
 On the card :func:`lacosmic_fused` runs the CUDA kernels of
-``csrc/lacosmic.cu`` (five launches an iteration through device memory;
-the launch counter counts iterations).  Its plain version
+``csrc/lacosmic.cu`` (four launches an iteration through device memory,
+the 7x7 median and the masked clean only on the pixels whose result
+they can change; the launch counter counts iterations).  Its plain version
 :func:`_iter_plain` runs the same comparator programs as whole-strip
 elementwise min/max.
 """
@@ -165,39 +166,63 @@ def _iter_plain(clean, inm, crm, rdn, sigclip: float, sigfrac: float,
 # ---- the kernel ------------------------------------------------------------
 
 def _iter_cuda(clean, inm, crm, rdn, sigclip: float, sigfrac: float,
-               objlim: float):
-    """One K7 iteration through the five launches of csrc/lacosmic.cu.
-    Scratch planes span the (Hp + 2 HALO, Wp + 2 HALO) extended domain."""
-    kernels.require_cuda("lacosmic_fused", clean, inm, crm, rdn)
-    Hp, Wp = clean.shape
+               objlim: float, padded, total, counts):
+    """One K7 iteration through the four launches of csrc/lacosmic.cu.
+
+    clean  : the (H, W) frame (first iteration) or the last iteration's
+             (Hp, Wp) result; the kernels read it at clamped coordinates,
+             which is the edge padding to (Hp, Wp).
+    inm    : (H, W) uint8 mask, 0 or 1, read the same way.
+    crm    : the last iteration's (Hp, Wp) mask, or None (zeros).
+    padded : (Hp, Wp).
+    total  : int32 device scalar; the kernel adds the frame's count of
+             crm2 > 0.5 to it.
+    counts : int32 (2,) device tensor; receives the number of pixels
+             the kernel listed for the 7x7 median and for the masked
+             clean.
+
+    Scratch planes span the (Hp + 2 HALO, Wp + 2 HALO) extended domain.
+    Returns the (Hp, Wp) cleaned frame and cosmic mask.
+    """
+    Hp, Wp = padded
+    H, W = inm.shape
     He, We = Hp + 2 * HALO, Wp + 2 * HALO
-    scratch = torch.empty((7, He, We), dtype=torch.float32,
-                          device=clean.device)
-    out_c = torch.empty_like(clean)
-    out_m = torch.empty_like(clean)
-    with torch.cuda.device(clean.device):
+    dev = clean.device
+    ops = [t for t in (clean, inm, crm, rdn, total, counts) if t is not None]
+    kernels.require_cuda("lacosmic_fused", *ops)
+    scratch = torch.empty((6, He, We), dtype=torch.float32, device=dev)
+    out_c = torch.empty(padded, dtype=torch.float32, device=dev)
+    out_m = torch.empty(padded, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         kernels.check(kernels.lib().bbt_lacosmic_iter(
-            clean.data_ptr(), inm.data_ptr(), crm.data_ptr(),
-            rdn.data_ptr(), out_c.data_ptr(), out_m.data_ptr(),
-            scratch.data_ptr(), Hp, Wp, HALO, float(sigclip),
-            float(sigclip * sigfrac), float(objlim),
+            clean.data_ptr(), *clean.shape, inm.data_ptr(), H, W,
+            None if crm is None else crm.data_ptr(), rdn.data_ptr(),
+            out_c.data_ptr(), out_m.data_ptr(), scratch.data_ptr(),
+            counts.data_ptr(), total.data_ptr(), Hp, Wp, HALO,
+            float(sigclip), float(sigclip * sigfrac), float(objlim),
             kernels.stream_of(clean)), "lacosmic_fused")
     return out_c, out_m
+
+
+def _inputs(data, inmask, rdnoise):
+    """The mask (zeros if None) and the scalar read noise of a call,
+    checked."""
+    if inmask is None:
+        inmask = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+    if inmask.shape != data.shape:
+        raise ValueError(f"lacosmic_fused: inmask {tuple(inmask.shape)} "
+                         f"for data {tuple(data.shape)}")
+    rdn = torch.as_tensor(rdnoise, dtype=torch.float32, device=data.device)
+    if rdn.numel() != 1:
+        raise ValueError("lacosmic_fused: the read noise must be a scalar")
+    return inmask, rdn.reshape(())
 
 
 def _run(data, inmask, rdnoise, sigclip, sigfrac, objlim, niter, step):
     H, W = data.shape
     Hp, Wp = padded_shape(H, W)
     dev = data.device
-    if inmask is None:
-        inmask = torch.zeros((H, W), dtype=torch.bool, device=dev)
-    if inmask.shape != data.shape:
-        raise ValueError(f"lacosmic_fused: inmask {tuple(inmask.shape)} "
-                         f"for data {tuple(data.shape)}")
-    rdn = torch.as_tensor(rdnoise, dtype=torch.float32, device=dev)
-    if rdn.numel() != 1:
-        raise ValueError("lacosmic_fused: the read noise must be a scalar")
-    rdn = rdn.reshape(())
+    inmask, rdn = _inputs(data, inmask, rdnoise)
 
     def pad(x):
         return F.pad(x[None], (0, Wp - W, 0, Hp - H), mode="replicate")[0]
@@ -240,13 +265,35 @@ def lacosmic_fused(data, inmask, rdnoise, sigclip: float = 15.0,
     if data.device.type == "cpu":
         return _lacosmic_plain(data, inmask, rdnoise, sigclip, sigfrac,
                                objlim, niter)
+    return _run_cuda(data, inmask, rdnoise, sigclip, sigfrac, objlim,
+                     niter)[:3]
 
-    def step(*args):
-        out = _iter_cuda(*args)
+
+def _run_cuda(data, inmask, rdnoise, sigclip, sigfrac, objlim, niter):
+    """The kernel's iteration loop: what :func:`_run` does around the plain
+    iterations, without materialising the padding.  The kernels read the
+    frame and the mask at clamped coordinates (the edge padding to
+    :func:`padded_shape`) and count crm2 > 0.5 on the frame into
+    ``totals[i]`` (the plain version's ``torch.sum`` of iteration i).
+    Returns what :func:`lacosmic_fused` returns and, fourth, the (niter,
+    2) int32 counts of pixels each iteration listed for the 7x7 median
+    and for the masked clean."""
+    H, W = data.shape
+    inmask, rdn = _inputs(data, inmask, rdnoise)
+    if inmask.dtype != torch.bool:
+        raise ValueError("lacosmic_fused: the mask must be bool on the card")
+    clean = data.to(torch.float32).contiguous()
+    inm = inmask.contiguous().view(torch.uint8)
+    crm = None
+    totals = torch.zeros(niter, dtype=torch.int32, device=data.device)
+    listed = torch.empty((niter, 2), dtype=torch.int32, device=data.device)
+    for i in range(niter):
+        clean, crm = _iter_cuda(clean, inm, crm, rdn, sigclip, sigfrac,
+                                objlim, padded_shape(H, W), totals[i],
+                                listed[i])
         lacosmic_fused.launches += 1
-        return out
-
-    return _run(data, inmask, rdnoise, sigclip, sigfrac, objlim, niter, step)
+    counts = torch.diff(totals, prepend=totals.new_zeros(1))
+    return clean[:H, :W], crm[:H, :W] > 0.5, counts, listed
 
 
 lacosmic_fused.launches = 0

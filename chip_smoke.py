@@ -20,8 +20,9 @@ Phases, each printing its own lines:
    exclusion, 32 steps) and its transient form (|x|, no taps, 48
    steps).  Both times come from CUDA events; each kernel's bound is
    worked out from the bytes it must move and the operations it must
-   do at those shapes (``bound``).  The times of K1's and K6's
-   previous designs are printed beside theirs (``PREVIOUS_MS``).
+   do at those shapes (``bound``; K4's for each of its two calls).
+   The times of K1's, K5's, K6's and K7's previous designs are printed
+   beside theirs (``PREVIOUS_MS``).
 3. The reduction (``make_reduce_fn``, production configuration with the
    PSF stages on) of a TINY frame on the card held against the same
    frame reduced on the CPU with the plain versions, then of three full
@@ -55,7 +56,7 @@ The launch counters are zeroed just before each of phases 3, 4 and 5
 and read just after it: every kernel of a phase's path must have moved,
 K1 must show 1 launch per catalog frame and 2 per science frame (its
 48 transient steps are one launch), K6 6 per science frame, K7 3 per frame it
-calibrates (it counts iterations, five CUDA launches each) and K2 none
+calibrates (it counts iterations, four CUDA launches each) and K2 none
 in phase 5.  Any failure raises: the script then exits non-zero and
 prints no ok line.
 It needs a CUDA device and the repository's port package.
@@ -80,15 +81,21 @@ HBM_BYTES_PER_S = 3.35e12
 F32_INSTR_PER_S = 33.5e12
 I32_INSTR_PER_S = 16.75e12
 # The previous designs of K1 (one haloed tile a block, every step over
-# the whole tile, at most 32 steps a launch) and K6 (step A with its
-# constants in shared memory, nine shared-memory passes of radix-2) on
-# one H100 80GB HBM3 at 700 W, printed beside this run's (PERF.md §6):
-# K1 on the star field (chip_smoke.py) and on the transient map, K6's
-# passes and each pass's two launches (kernel_profile.py)
+# the whole tile, at most 32 steps a launch), K6 (step A with its
+# constants in shared memory, nine shared-memory passes of radix-2), K5
+# (one 64² tile a block with an `iters`-wide halo, filtered and swept
+# whole) and K7 (every stage at every pixel, five launches an
+# iteration) on one H100 80GB HBM3 at 700 W, printed beside this run's
+# (PERF.md §6): K1 on the star field (chip_smoke.py) and on the
+# transient map, K6's passes and each pass's two launches
+# (kernel_profile.py), K5's two forms and K7's 3 iterations
+# (chip_smoke.py)
 PREVIOUS_MS = {"K1 star field": 6.152, "K1 transient map": 3.538,
-          "K6 forward": 3.479, "K6 inverse": 3.441,
-          "K6 forward step A": 1.123, "K6 forward radix-2": 2.329,
-          "K6 inverse step A": 1.156, "K6 inverse radix-2": 2.290}
+               "K6 forward": 3.479, "K6 inverse": 3.441,
+               "K6 forward step A": 1.123, "K6 forward radix-2": 2.329,
+               "K6 inverse step A": 1.156, "K6 inverse radix-2": 2.290,
+               "K5 detection": 15.181, "K5 transient": 9.685,
+               "K7": 52.781}
 FRATIO = 1.3            # the reference is made 1.3x deeper (bench.py)
 NTRANS = 20             # transients injected into the gated scene
 
@@ -301,6 +308,7 @@ def check_kernels(card):
 
     # K4: the catalog's small and big window gathers, n_active < N
     ms = plain = err = nbytes = 0.0
+    call_bounds = []
     for N, size in ((20000, 32), (1024, 96)):
         y0 = torch.randint(-20, H + 20, (N,), generator=gen, device="cuda",
                            dtype=torch.int32)
@@ -318,14 +326,19 @@ def check_kernels(card):
         ms, plain = ms + tk, plain + tpl
         # 8 B a window pixel (f32 + int32): read for the live slots,
         # written for every slot
-        nbytes += 8.0 * size * size * (int(nact) + N)
+        call_bytes = 8.0 * size * size * (int(nact) + N)
+        nbytes += call_bytes
+        cb = bound(call_bytes)
+        call_bounds.append(cb[0])
         print(f"K4 gather_slot_windows {N}x{size}^2 (f32 + int32, "
               f"n_active {int(nact)}): bit-exact, kernel {tk:.3f} ms, "
-              f"plain {tpl:.3f} ms [{card}]")
-    results.append(entry("gather_slot_windows",
-                         "blackbox_tpu_torch/csrc/gather.cu",
-                         "blackbox_tpu/pallas/gather.py:61", err, ms, plain,
-                         *bound(nbytes)))
+              f"plain {tpl:.3f} ms, bound {cb[0]:.4f} ms ({cb[1]}; "
+              f"{cb[0] / tk:.0%} of the kernel's time) [{card}]")
+    results.append(dict(entry("gather_slot_windows",
+                              "blackbox_tpu_torch/csrc/gather.cu",
+                              "blackbox_tpu/pallas/gather.py:61", err, ms,
+                              plain, *bound(nbytes)),
+                        call_bound_ms=call_bounds))
     results.append(check_fft(card))
     results.append(check_detect(card, img))
     return results
@@ -403,11 +416,15 @@ def check_fft(card):
                 forward_ms=ms[0], inverse_ms=ms[1], launch_ms=launch_ms)
 
 
-def check_detect(card, img):
-    """K5 in both forms at 10560²: the detection form on the star field
-    and the transient form on a Scorr-like map (the entry's times are
-    the sum of one of each, as a science frame runs them under
-    BBTPU_PALLAS_DETECT=1)."""
+def detect_forms(img):
+    """K5's two forms on the star field ``img``, by name: the arguments
+    of ``_fused_detect_plain`` (image, std, exclusion, taps, nsigma,
+    steps, |x|), the bytes a pixel the call must move and the filter's
+    float operations a pixel.  The detection form thresholds the
+    filtered star field against a std map with a 10% spread; the
+    transient form thresholds |x| of the star field in sigma units,
+    as ``extract_transients`` thresholds Scorr; both exclude 1e-3 of
+    the pixels and the first 64 rows."""
     from blackbox_tpu_torch.ops import detection
 
     H, W = img.shape
@@ -419,12 +436,24 @@ def check_detect(card, img):
     excl[:64] = True
     taps = detection.gaussian_taps(3.0)
     scorr = sub / np.sqrt(300.0)
-    forms = {"detection": ((sub, std, excl, taps, 1.5, 32, False),
-                           13.0, 2 * 2 * len(taps)),
-             "transient": ((scorr, None, excl, None, 6.0, 48, True),
-                           9.0, 0)}
+    return {"detection": ((sub, std, excl, taps, 1.5, 32, False),
+                          13.0, 2 * 2 * len(taps)),
+            "transient": ((scorr, None, excl, None, 6.0, 48, True),
+                          9.0, 0)}
+
+
+def check_detect(card, img):
+    """K5 in both forms at 10560²: the detection form on the star field
+    and the transient form on a Scorr-like map (the entry's times are
+    the sum of one of each, as a science frame runs them under
+    BBTPU_PALLAS_DETECT=1)."""
+    from blackbox_tpu_torch.ops import detection
+
+    H, W = img.shape
+    forms = detect_forms(img)
     ms = plain = bnd_ms = err = 0.0
     bound_by = "bytes"
+    forms_ms = {}
     for form, (args, bpp, flops) in forms.items():
         got = detection.fused_detect(*args[:5], iters=args[5],
                                      absval=args[6])
@@ -442,46 +471,72 @@ def check_detect(card, img):
                   i32_ops=8.0 * args[5] * nfg)
         ms, plain, bnd_ms = ms + tk, plain + tpl, bnd_ms + b[0]
         bound_by = b[1] if b[1] == "operations" else bound_by
+        forms_ms[form] = tk
         print(f"K5 fused_detect {form} form {H}x{W} ({args[5]} steps, "
-              f"{nfg} pixels detected): bit-exact, kernel {tk:.3f} ms, "
-              f"plain {tpl:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) [{card}]")
-    return entry("fused_detect", "blackbox_tpu_torch/csrc/detect.cu",
-                 "blackbox_tpu/pallas/detect.py:64", err, ms, plain, bnd_ms,
-                 bound_by)
+              f"{nfg} pixels detected): bit-exact, kernel {tk:.3f} ms "
+              f"(previous design: {PREVIOUS_MS['K5 ' + form]:.3f}), plain "
+              f"{tpl:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) [{card}]")
+    return dict(entry("fused_detect", "blackbox_tpu_torch/csrc/detect.cu",
+                      "blackbox_tpu/pallas/detect.py:64", err, ms, plain,
+                      bnd_ms, bound_by),
+                detection_ms=forms_ms["detection"],
+                transient_ms=forms_ms["transient"])
 
 
-def k7_ops_per_pixel() -> float:
-    """Float operations a pixel and iteration of csrc/lacosmic.cu: the
-    column sorts (one column a pixel) and pruned merges of its four
-    medians, the Laplacian and noise model, the gt tests and
-    dilations, and the masked clean (a 25-value transposition sort, the
-    blend and good count, the two 25-term rank picks)."""
-    from blackbox_tpu_torch.ops.filters import (comparator_cost,
+def k7_ops():
+    """Float operations of csrc/lacosmic.cu: (dense per pixel and
+    iteration, per pixel listed for the 7x7 median, per pixel listed for
+    the masked clean, dense per pixel and iteration of the first design,
+    which ran every stage at every pixel).  Stages 1 and 2 take their
+    5x5 and 3x3 medians from K2's tile programs (the min/max of
+    ``tile_median_ops`` over the tile's pixels); stage 1 adds the
+    Laplacian and noise model, stage 2 sp and its gt test, then the two
+    dilations and their gt tests; a listed 7x7 median runs the
+    sorted-column network (a column sort, one column a pixel, and the
+    pruned merge) and adds f and the seed mask's second gt test, a
+    listed clean the 25-value transposition sort, the blend and good
+    count, and the two 25-term rank picks.  The first design ran the
+    sorted-column network for every median."""
+    from blackbox_tpu_torch.ops.filters import (MEDIAN_TILE,
+                                                comparator_cost,
                                                 sc_select_ops,
+                                                tile_median_ops,
                                                 transposition_pairs)
 
     def median(k):
         merge, _ = sc_select_ops(k, (k * k // 2,))
         return 2 * len(transposition_pairs(k)) + comparator_cost(merge)
 
-    stage1 = median(5) + median(3) + 24      # lap 17, noise 2, s 2, clamp
-    stage2 = median(5) + median(7) + 20      # sp, noise, f, good, c1
+    def tile(k):
+        ops, _, _ = tile_median_ops(k, *MEDIAN_TILE)
+        return comparator_cost(ops) / (MEDIAN_TILE[0] * MEDIAN_TILE[1])
+
+    rest1 = 24                               # lap 17, noise 2, s 2, clamp
+    rest2 = 7                                # sp, gt(sp, sigclip), good, c1
     grow = 9 + 25 + 2 * 7 + 1                # two dilations, gts, max
+    med7 = median(7) + 13                    # noise, f, gt(sp / f), c1
     clean = 2 * len(transposition_pairs(25)) + 25 * 6 + 25 * 2 * 6 + 16
-    return float(stage1 + stage2 + grow + clean)
+    dense = tile(5) + tile(3) + rest1 + tile(5) + rest2 + grow
+    first = (median(5) + median(3) + rest1 + median(5) + rest2 + grow
+             + med7 + clean)
+    return float(dense), float(med7), float(clean), float(first)
 
 
 def check_k7(card, args):
     """K7 on the call the reduction made in phase 5 (``args``: the
     calibrated mosaic, its mask, read noise, sigclip, sigfrac, objlim
     and niter), bit-exact against its plain version at that full shape
-    and timed there."""
+    and timed there.  Its bound counts the operations these inputs need
+    (the dense stages everywhere, the 7x7 median and the clean on the
+    pixels the kernel listed); the bound of the same call at the design
+    that ran every stage everywhere is printed beside it."""
     from blackbox_tpu_torch.ops import lacosmic_fused as K7
     H, W = args[0].shape
     niter = args[6]
-    got = K7.lacosmic_fused(*args)
+    got = K7._run_cuda(*args)
+    listed = [tuple(c) for c in got[3].tolist()]
     ref = K7._lacosmic_plain(*args)
-    err = max(max_abs_err(a, b) for a, b in zip(got, ref))
+    err = max(max_abs_err(a, b) for a, b in zip(got[:3], ref))
     nflag = int(got[1].sum())
     if nflag <= 0:
         raise AssertionError("K7: no cosmic pixel flagged")
@@ -489,16 +544,26 @@ def check_k7(card, args):
     ms = cuda_ms(lambda: K7.lacosmic_fused(*args))
     plain = cuda_ms(lambda: K7._lacosmic_plain(*args), reps=1)
     Hp, Wp = K7.padded_shape(H, W)
-    per_px = k7_ops_per_pixel()
-    # f32 frame and bool inmask in, f32 clean and bool crmask out; the
-    # operations of niter iterations over the padded frame
-    bnd = bound(10.0 * H * W, f32_ops=niter * per_px * Hp * Wp)
+    dense, med7, clean, first = k7_ops()
+    n7 = sum(c[0] for c in listed)
+    nc = sum(c[1] for c in listed)
+    ops = niter * dense * Hp * Wp + med7 * n7 + clean * nc
+    # f32 frame and bool inmask in, f32 clean and bool crmask out
+    bnd = bound(10.0 * H * W, f32_ops=ops)
+    old_bnd = bound(10.0 * H * W, f32_ops=niter * first * Hp * Wp)
     print(f"K7 lacosmic_fused {H}x{W} (padded {Hp}x{Wp}), {niter} iterations "
-          f"({nflag} pixels flagged): bit-exact, kernel {ms:.3f} ms, plain "
-          f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}, {per_px:.0f} "
-          f"ops/px/iteration) [{card}]")
-    return entry("lacosmic_fused", "blackbox_tpu_torch/csrc/lacosmic.cu",
-                 "blackbox_tpu/pallas/lacosmic.py:120", err, ms, plain, *bnd)
+          f"({nflag} pixels flagged; listed for the 7x7 median / the clean "
+          f"by iteration: {listed}): bit-exact, kernel {ms:.3f} ms "
+          f"(previous design: {PREVIOUS_MS['K7']:.3f}), plain "
+          f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}, "
+          f"{ops / (niter * Hp * Wp):.2f} ops/px/iteration: {dense:g} "
+          f"dense, {med7:.0f} a listed 7x7 median, {clean:.0f} a listed "
+          f"clean); every stage everywhere: {first:.0f} ops/px/iteration, "
+          f"bound {old_bnd[0]:.3f} ms [{card}]")
+    return dict(entry("lacosmic_fused", "blackbox_tpu_torch/csrc/lacosmic.cu",
+                      "blackbox_tpu/pallas/lacosmic.py:120", err, ms, plain,
+                      *bnd),
+                dense_bound_ms=old_bnd[0], listed=listed)
 
 
 def check_k3(card, ctx, mesh, stdm):
@@ -932,12 +997,13 @@ def calib_phase(ctx, card, xtalk):
         raise AssertionError(f"master flat median {gmed}")
 
     fn_k7 = make_reduce_fn(dataclasses.replace(ctx, lac_params=k7))
-    run = K7._run
+    run = K7._run_cuda
     first = {"masters": (mbias, mflat)}
 
     def record(*args):
-        """K7's driver loop, keeping a copy of the first call's inputs
-        (data, inmask, read noise, sigclip, sigfrac, objlim, niter)."""
+        """K7's iteration loop on the card, keeping a copy of the first
+        call's inputs (data, inmask, read noise, sigclip, sigfrac,
+        objlim, niter)."""
         first.setdefault("k7", tuple(a.clone() if torch.is_tensor(a) else a
                                      for a in args[:7]))
         return run(*args)
@@ -946,7 +1012,7 @@ def calib_phase(ctx, card, xtalk):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         raw = make_science_device(gen, geom, nstars=4000, ncosmics=800,
                                   trail=True, nsat=20)[:3]
-        K7._run = record if i == 0 else run
+        K7._run_cuda = record if i == 0 else run
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -954,7 +1020,7 @@ def calib_phase(ctx, card, xtalk):
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         finally:
-            K7._run = run
+            K7._run_cuda = run
         nk7 += 1
         check_frame(out, ctx, f"science frame {i} (seed {seed}) with K7", ms,
                     card)

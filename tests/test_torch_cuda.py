@@ -27,6 +27,15 @@ def _same(a, b):
     assert bool(eq.all())
 
 
+def _same_bits(a, b):
+    """As ``_same``, and float zeros must agree in sign."""
+    _same(a, b)
+    if a.dtype == torch.float32:
+        nan = torch.isnan(a) & torch.isnan(b)
+        assert bool(((a.view(torch.int32) == b.view(torch.int32))
+                     | nan).all())
+
+
 SHAPES = [(5, 7), (70, 130), (257, 1031)]
 
 
@@ -273,6 +282,79 @@ def test_detect_kernel(dev, shape, form):
     assert n.device.type == "cuda"
 
 
+def _detect_case(kind, shape, g, dev):
+    """Image, std map and exclusion of one K5 case on the card."""
+    H, W = shape
+    img = torch.randn(shape, generator=g, device=dev)
+    std = 0.8 + 0.4 * torch.rand(shape, generator=g, device=dev)
+    excl = torch.zeros(shape, dtype=torch.bool, device=dev)
+    if kind == "empty":
+        img.zero_()
+    elif kind == "full":
+        img.fill_(50.0)
+    elif kind == "sparse":                  # most tiles hold no detection
+        for y, x in ((10, 12), (40, 300), (200, 420), (290, 5)):
+            img[max(y - 2, 0):y + 3, max(x - 3, 0):x + 4] += 30.0
+    elif kind == "border":                  # every edge and corner
+        img[0, 20:30] += 40.0
+        img[H - 1, 100:140] += 40.0
+        img[30:50, 0] += 40.0
+        img[5:9, W - 1] += 40.0
+        img[0, 0] = img[H - 1, W - 1] = 90.0
+    elif kind == "nanstd":                  # NaN and 0 in the std map
+        img[20:26, 30:36] += 30.0
+        std[22, 32] = float("nan")
+        std[50:53, 100:103] = 0.0
+        std[torch.rand(shape, generator=g, device=dev) < 0.02] = float("nan")
+        img[60, 70] = float("nan")
+    elif kind == "excl":                    # exclusions over sources
+        img[30:40, 20:60] += 30.0
+        excl[33:36, :] = True
+        excl |= torch.rand(shape, generator=g, device=dev) < 0.05
+    return img, std, excl
+
+
+def _misaligned(x):
+    """A copy of ``x`` whose data starts 4 bytes past a 16-byte boundary
+    (for bool, 1 byte past)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("fwhm", [3.0, 4.5])
+@pytest.mark.parametrize("align", [16, 4])
+@pytest.mark.parametrize("iters", [1, 24, 32, 48, 56, 64])
+@pytest.mark.parametrize("kind", ["empty", "full", "sparse", "border",
+                                  "nanstd", "excl"])
+def test_detect_kernel_cases(dev, kind, iters, align, fwhm):
+    """K5's scan and listed-tile steps bit for bit against the plain
+    version, in the detection and the transient form, on empty, full
+    and sparse frames, sources on the border, NaN and 0 in the std map
+    and exclusions, with rows of 16-byte and of 4-byte alignment, a
+    filter of 9 and of 13 taps (FWHM 3 and 4.5 px); one call up to 64
+    steps (two launches; 16 x 16 tiles above 60 steps)."""
+    from blackbox_tpu_torch.ops import detection
+    g = torch.Generator(device=dev).manual_seed(iters + len(kind))
+    img, std, excl = _detect_case(kind, (300, 460), g, dev)
+    if align == 4:
+        img, std, excl = (_misaligned(x) for x in (img, std, excl))
+        assert img.data_ptr() % 16 != 0
+    taps = detection.gaussian_taps(fwhm)
+    assert len(taps) == {3.0: 9, 4.5: 13}[fwhm]
+    for args in ((img, std, excl, taps, 1.5, iters, False),
+                 (3.0 * img if align == 16 else _misaligned(3.0 * img),
+                  None, excl, None, 6.0, iters, True)):
+        before = detection.fused_detect.launches
+        seg, n = detection.fused_detect(*args[:5], iters=iters,
+                                        absval=args[6])
+        assert detection.fused_detect.launches == before + 1
+        seg_p, n_p = detection._fused_detect_plain(*args)
+        _same(seg, seg_p)
+        _same(n, n_p)
+
+
 def test_detect_segments_switch(dev, monkeypatch):
     """BBTPU_PALLAS_DETECT=1 routes detect_segments through K5 on a
     frame of at least 512 x 512, with the same segments as the route
@@ -399,6 +481,129 @@ def test_lacosmic_kernel(dev, shape, thresholds):
     for a, b in zip(got, want):
         _same(a, b)
     assert got[0].device.type == "cuda"
+
+
+def _k7_case(kind, dev):
+    """A (70, 130) sky with stars and isolated cosmics, plus the case's
+    specials (as tests/test_torch_lacosmic_fused.py's predicate frames)."""
+    H, W = 70, 130
+    g = torch.Generator(device=dev).manual_seed(len(kind))
+    img = 100.0 + 10.0 * torch.randn((H, W), generator=g, device=dev)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    for y, x in ((10, 12), (48, 95)):
+        img += 4e3 * torch.exp(-0.5 * ((yy - y) ** 2 + (xx - x) ** 2) / 2.0)
+    img += 3e4 * torch.exp(-0.5 * ((yy - 60) ** 2 + (xx - 20) ** 2) / 0.8)
+    for y, x in ((5, 30), (20, 8), (53, 60), (15, 110)):
+        img[y, x] += 2e4
+    inm = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    rdn = 6.0
+    if kind == "zeros":
+        img[2:8, 2:8] = 0.0
+        img[12, 30] = -0.0
+        img[torch.rand((H, W), generator=g, device=dev) < 0.03] = -0.0
+    elif kind == "nan":
+        img[18, 25] = float("nan")
+        img[3, 50] = float("nan")
+    elif kind == "inf":
+        img[8, 40] = float("inf")
+        img[30, 10] = float("-inf")
+    elif kind == "ties":
+        img[20:23, 30:33] = 1e30
+        img[5, 5] = 1e30
+    elif kind == "huge":
+        img[10, 20] = 2.0 ** 100
+        img[25, 40] = -3e38
+        img[30, 5] = 1e35
+    elif kind == "clustered":
+        img[10:13, 30:34] += 2e4
+        img[11, 35] += 2e4
+        img[46:48, 72:74] += 3e4
+    elif kind == "allbad":
+        inm[5:14, 20:29] = True
+        img[9, 24] += 2e4
+        inm[30:36, 40:46] = True
+        img[32, 38] += 2e4
+    elif kind == "rdn_nan":
+        rdn = float("nan")
+    elif kind == "rdn_inf":
+        rdn = float("inf")
+    elif kind == "overflow":
+        from torch_parity import K7_OVERFLOW_PATCH
+        img[10:32, 15:37] = 100.0
+        img[18:24, 23:30] = torch.from_numpy(K7_OVERFLOW_PATCH).to(dev)
+        rdn = 0.0
+    return img, inm, torch.tensor(rdn, device=dev)
+
+
+K7_THRESHOLDS = {"production": (15.0, 0.01, 3.0), "zero": (0.0, 0.0, 0.0),
+                 "objlim_nan": (15.0, 0.01, float("nan"))}
+
+
+@pytest.mark.parametrize("thresholds", list(K7_THRESHOLDS))
+@pytest.mark.parametrize("kind", ["plain", "zeros", "nan", "inf", "ties",
+                                  "huge", "clustered", "allbad", "rdn_nan",
+                                  "rdn_inf", "overflow"])
+def test_lacosmic_kernel_skip_cases(dev, kind, thresholds):
+    """K7's sparse 7x7 median and sparse clean over 3 iterations against
+    the plain version, bit for bit, on +-0, NaN, +-inf, 1e30 ties with
+    the blend's BIG, values around the skip tests' 2^100 bound, clustered
+    hits, all-bad neighbourhoods, a NaN and an infinite read noise, a
+    ratio m3 / noise that overflows and a NaN objlim (the frames of
+    tests/test_torch_lacosmic_fused.py, on which each clause of the skip
+    tests is needed); the first iteration lists pixels for both where
+    both have work, and at the production thresholds no iteration lists
+    all (under a NaN read noise or objlim the 7x7 median runs
+    everywhere)."""
+    from blackbox_tpu_torch.ops import lacosmic_fused as K7
+    img, inm, rdn = _k7_case(kind, dev)
+    sigclip, sigfrac, objlim = K7_THRESHOLDS[thresholds]
+    got = K7._run_cuda(img, inm, rdn, sigclip, sigfrac, objlim, 3)
+    want = K7._lacosmic_plain(img, inm, rdn, sigclip, sigfrac, objlim, 3)
+    for a, b in zip(got[:3], want):
+        _same_bits(a, b)
+    Hp, Wp = K7.padded_shape(*img.shape)
+    He, We = Hp + 2 * K7.HALO, Wp + 2 * K7.HALO
+    listed = got[3].tolist()
+    if kind != "rdn_inf":
+        assert listed[0][0] > 0 and listed[0][1] > 0
+    for n7, nc in listed:
+        assert 0 <= n7 <= He * We and 0 <= nc <= Hp * Wp
+        if kind == "rdn_nan" or thresholds == "objlim_nan":
+            assert n7 == He * We
+        elif thresholds == "production":
+            assert n7 < He * We and nc < Hp * Wp
+
+
+@pytest.mark.parametrize("thresholds", list(K7_THRESHOLDS))
+def test_lacosmic_iteration_from_mask(dev, thresholds):
+    """One K7 iteration from a cosmic mask that holds NaN, 0.5, 2.0 and
+    1e30 (outside the [0, 1] the clean's skip test asks of its 5x5
+    window) against the plain iteration on the padded planes, bit for
+    bit."""
+    import torch.nn.functional as F
+    from blackbox_tpu_torch.ops import lacosmic_fused as K7
+    img, inm, rdn = _k7_case("plain", dev)
+    H, W = img.shape
+    Hp, Wp = K7.padded_shape(H, W)
+    crm = torch.zeros((Hp, Wp), device=dev)
+    crm[12, 20] = float("nan")
+    crm[25, 33] = 2.0
+    crm[30, 50] = 1e30
+    crm[8, 8] = 0.5
+    total = torch.zeros((), dtype=torch.int32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    got = K7._iter_cuda(img, inm.view(torch.uint8), crm, rdn,
+                        *K7_THRESHOLDS[thresholds], (Hp, Wp), total, counts)
+
+    def pad(x):
+        return F.pad(x[None], (0, Wp - W, 0, Hp - H), mode="replicate")[0]
+
+    want = K7._iter_plain(pad(img), pad(inm.float()), crm, rdn,
+                          *K7_THRESHOLDS[thresholds])
+    for a, b in zip(got, want):
+        _same_bits(a, b)
+    assert int(counts[1]) > 0
 
 
 @pytest.mark.parametrize("shape, box, nmesh", [

@@ -235,3 +235,35 @@ def test_from_defaults_matches_from_settings(tel, gname):
     got = ReduceContext.from_defaults(getattr(tg, gname), tel)
     _assert_same_context(got, want)
     np.testing.assert_array_equal(got.gains, want.gains)
+
+
+def _c_launchers():
+    """Each ``extern "C" int bbt_*(...)`` launcher in csrc/*.cu: its
+    parameters as ctypes kinds (a pointer, an int or a float)."""
+    import re
+    from blackbox_tpu_torch import kernels
+    found = {}
+    for src in sorted(kernels.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for name, params in re.findall(r'extern "C" int (bbt_\w+)\(([^)]*)\)',
+                                       text):
+            kinds = []
+            for p in params.split(","):
+                p = p.strip()
+                kinds.append("P" if "*" in p else
+                             "F" if p.startswith("float") else "I")
+            found[name] = tuple(kinds)
+    return found
+
+
+def test_launcher_signatures_match_sources():
+    """kernels._SIGNATURES binds every launcher of csrc/ with the
+    parameters its C declaration has, in order: a mismatch would pass
+    arguments in the wrong slots on the card, where no test here runs."""
+    import ctypes
+    from blackbox_tpu_torch import kernels
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+    declared = _c_launchers()
+    assert set(declared) == set(kernels._SIGNATURES)
+    for name, argtypes in kernels._SIGNATURES.items():
+        assert tuple(kind[a] for a in argtypes) == declared[name], name

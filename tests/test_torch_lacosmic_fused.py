@@ -21,11 +21,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from torch_parity import assert_exact, cosmic_scene as _scene, t  # noqa: E402
+from torch_parity import (K7_OVERFLOW_PATCH, assert_exact,  # noqa: E402
+                          cosmic_scene as _scene, t)
 from blackbox_tpu.ops import cosmics as jcos  # noqa: E402
 from blackbox_tpu.pallas.lacosmic import lacosmic_pallas  # noqa: E402
 from blackbox_tpu_torch.core.geometry import TINY  # noqa: E402
 from blackbox_tpu_torch.ops import cosmics  # noqa: E402
+from blackbox_tpu_torch.ops import lacosmic_fused as K7  # noqa: E402
 from blackbox_tpu_torch.ops.lacosmic_fused import (lacosmic_fused,  # noqa: E402
                                                    padded_shape)
 
@@ -132,3 +134,155 @@ def test_rejects_malformed_inputs():
         lacosmic_fused(img, torch.zeros((16, 23), dtype=torch.bool), 5.0)
     with pytest.raises(ValueError, match="scalar"):
         lacosmic_fused(img, None, torch.full((16, 24), 5.0))
+
+
+# ---- csrc/lacosmic.cu's two skip predicates, modelled in PyTorch --------
+
+BOUND = 2.0 ** 100     # the kernel's small(): |x| below 2^100
+
+
+def _window_all(mask, k):
+    """AND over the k x k window of each pixel, edge-clamped reads."""
+    p = k // 2
+    h, w = mask.shape
+    mp = K7._edge(mask.to(torch.float32), p)
+    out = torch.ones_like(mask)
+    for dy in range(k):
+        for dx in range(k):
+            out = out & (mp[dy:dy + h, dx:dx + w] > 0)
+    return out
+
+
+def _is_pos_zero(x):
+    return x.view(torch.int32) == 0
+
+
+def _skip_iter(clean, inm, crm, rdn, sigclip, sigfrac, objlim):
+    """``_tile_iter`` with csrc/lacosmic.cu's skips: the 7x7 median is
+    poisoned (NaN) where ``stage2`` skips it and c1 is +0 * good there;
+    the masked clean is poisoned where ``grow_scan`` skips it and
+    out_c is clean there (inm is 0 or 1, as the kernel reads it).
+    Returns the result and the two skip maps.  Each clause of the two
+    tests is needed by one of the predicate frames: gt(sp, sigclip) and
+    crm2 == +0 by the plain frame, the 7x7 window of m3 by "overflow",
+    the finite objlim by the "objlim_nan" thresholds, clean != 0 by
+    "zeros", the 5x5 window of clean by "inf", and the 5x5 window of
+    crm2 by "nan", "inf" and "crm"."""
+    small = lambda x: torch.abs(x) < BOUND  # noqa: E731
+    unit = lambda x: (x >= 0) & (x <= 1)    # noqa: E731
+    m5 = torch.clamp(K7._median_edge(clean, 5), min=1e-5)
+    rr = rdn * rdn
+    noise = torch.sqrt(m5 + rr)
+    s = K7._laplacian(clean) / (2.0 * noise)
+    sp = s - K7._median_edge(s, 5)
+    m3 = K7._median_edge(clean, 3)
+    g1 = K7._gt(sp, sigclip)
+    skip7 = (_is_pos_zero(g1) & _window_all(small(m3), 7)
+             & bool(np.isfinite(objlim)))
+    m37 = torch.where(skip7, torch.nan, K7._median_edge(m3, 7))
+    f = torch.clamp((m3 - m37) / noise, min=0.01)
+    good = 1.0 - inm
+    cosm = torch.where(skip7, g1 * good,
+                       g1 * K7._gt(sp / f, objlim) * good)
+    cosm = K7._dilate(cosm, 3) * K7._gt(sp, sigclip) * good
+    cosm = K7._dilate(cosm, 5) * K7._gt(sp, sigclip * sigfrac) * good
+    crm2 = torch.maximum(crm, cosm)
+    skipc = (_is_pos_zero(crm2) & (clean != 0)
+             & _window_all(small(clean) & unit(crm2), 5))
+    repl = torch.where(skipc, torch.nan,
+                       K7._masked_median5(clean, torch.maximum(crm2, inm),
+                                          m5))
+    out = torch.where(skipc, clean, clean + crm2 * (repl - clean))
+    return (out, crm2), skip7, skipc
+
+
+def _bits_equal(a, b):
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _predicate_frame(kind, rng, H=40, W=60):
+    """A sky with stars and isolated cosmics, plus the case's specials;
+    returns the frame, the exclusion mask, the read noise and the
+    cosmic mask the iteration starts from."""
+    img = 100.0 + 10.0 * rng.standard_normal((H, W))
+    yy, xx = np.mgrid[0:H, 0:W]
+    for y, x in ((10, 12), (28, 45)):
+        img += 4e3 * np.exp(-0.5 * ((yy - y) ** 2 + (xx - x) ** 2) / 2.0)
+    # a sharp star: sp above sigclip, sp / f below objlim
+    img += 3e4 * np.exp(-0.5 * ((yy - 34) ** 2 + (xx - 8) ** 2) / 0.8)
+    for y, x in ((5, 30), (20, 8), (33, 20), (15, 50)):
+        img[y, x] += 2e4
+    inm = np.zeros((H, W), np.float32)
+    rdn = 6.0
+    if kind == "zeros":                  # +-0 pixels and a zero plateau
+        img[2:8, 2:8] = 0.0
+        img[12, 30] = -0.0
+        img[rng.random((H, W)) < 0.03] = -0.0
+    elif kind == "nan":
+        img[18, 25] = np.nan
+        img[3, 50] = np.nan
+    elif kind == "inf":
+        img[8, 40] = np.inf
+        img[30, 10] = -np.inf
+    elif kind == "ties":                 # values equal to the blend's BIG
+        img[20:23, 30:33] = 1e30
+        img[5, 5] = 1e30
+    elif kind == "huge":                 # around the 2^100 bound
+        img[10, 20] = 2.0 ** 100
+        img[25, 40] = -3e38
+        img[30, 5] = 1e35
+    elif kind == "clustered":            # hits that touch each other
+        img[10:13, 30:34] += 2e4
+        img[11, 35] += 2e4
+        img[26:28, 12:14] += 3e4
+    elif kind == "allbad":               # all-bad neighbourhoods
+        inm[5:14, 20:29] = 1.0
+        img[9, 24] += 2e4
+        inm[30:36, 40:46] = 1.0
+        img[32, 38] += 2e4
+    elif kind == "rdn_nan":
+        rdn = np.nan
+    elif kind == "rdn_inf":
+        rdn = np.inf
+    elif kind == "overflow":
+        img[10:32, 15:37] = 100.0
+        img[18:24, 23:30] = K7_OVERFLOW_PATCH
+        rdn = 0.0
+    crm = np.zeros((H, W), np.float32)
+    if kind == "crm":                    # a mask from outside [0, 1]
+        crm[12, 20] = np.nan
+        crm[25, 33] = 2.0
+        crm[30, 50] = 1e30
+        crm[8, 8] = 0.5
+    return (t(img.astype(np.float32)), t(inm),
+            torch.tensor(rdn, dtype=torch.float32), t(crm))
+
+
+THRESHOLDS = {"production": (15.0, 0.01, 3.0), "zero": (0.0, 0.0, 0.0),
+              "objlim_nan": (15.0, 0.01, np.nan)}
+
+
+@pytest.mark.parametrize("thresholds", list(THRESHOLDS))
+@pytest.mark.parametrize("kind", ["plain", "zeros", "nan", "inf", "ties",
+                                  "huge", "clustered", "allbad", "rdn_nan",
+                                  "rdn_inf", "overflow", "crm"])
+def test_skip_predicates_match_dense(kind, thresholds):
+    """The 7x7 median's and the masked clean's skip predicates: with the
+    skipped values poisoned, two iterations (the second from the
+    first's cosmic mask) equal the dense ``_tile_iter`` bit for bit, on
+    +-0, NaN, +-inf, 1e30 ties with the blend's BIG, values around the
+    2^100 bound, clustered hits, all-bad neighbourhoods, a NaN and an
+    infinite read noise, a ratio m3 / noise that overflows, a starting
+    mask outside [0, 1] and a NaN objlim."""
+    sig = THRESHOLDS[thresholds]
+    clean, inm, rdn, crm = _predicate_frame(kind, np.random.default_rng(3))
+    for _ in range(2):
+        want = K7._tile_iter(clean, inm, crm, rdn, *sig)
+        got, skip7, skipc = _skip_iter(clean, inm, crm, rdn, *sig)
+        assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+        # a NaN or infinite read noise or objlim leaves one path idle
+        if kind[:4] != "rdn_" and thresholds != "objlim_nan":
+            assert bool(skip7.any()) and bool(skipc.any())
+            assert bool((~skipc).any())
+        clean, crm = want

@@ -145,3 +145,108 @@ def test_extract_transients_matches_jax():
     for k in ws:
         assert_exact(gs[k], ws[k], k)
     assert gs["t_ntrans"].dtype == torch.int32
+
+
+# ---- the schedule of csrc/detect.cu, modelled in PyTorch -----------------
+
+STRIP_W = 128          # columns of one detect_scan strip
+
+
+def _scan_model(img, std, excl, taps, nsigma, absval, T):
+    """detect_scan of csrc/detect.cu in plain PyTorch: strips of T rows
+    x 128 columns, each filtered from its own image region (the taps'
+    r rows each side, and r rounded up to 4 columns each side, zero
+    outside the frame), along columns and then along rows, then the
+    threshold and the exclusion.  Returns the detection map."""
+    H, W = img.shape
+    x = img
+    if taps is not None:
+        r = (len(taps) - 1) // 2
+        R = (r + 3) & ~3
+        pad = torch.nn.functional.pad(img, (R, R + STRIP_W, r, r + T))
+        x = torch.empty_like(img)
+        for gy0 in range(0, H, T):
+            for gx0 in range(0, W, STRIP_W):
+                raw = pad[gy0:gy0 + T + 2 * r, gx0:gx0 + STRIP_W + 2 * R]
+                vcol = torch.zeros((T, STRIP_W + 2 * R))
+                for q, tq in enumerate(taps):
+                    vcol = vcol + tq * raw[q:q + T]
+                h = torch.zeros((T, STRIP_W))
+                for q, tq in enumerate(taps):
+                    h = h + tq * vcol[:, R - r + q:R - r + q + STRIP_W]
+                hh, ww = min(T, H - gy0), min(STRIP_W, W - gx0)
+                x[gy0:gy0 + hh, gx0:gx0 + ww] = h[:hh, :ww]
+    if absval:
+        x = torch.abs(x)
+    det = (x > nsigma * torch.clamp(std, min=1e-6) if std is not None
+           else x > nsigma)
+    if excl is not None:
+        det = det & ~excl
+    return det
+
+
+def _detect_model(img, std, excl, taps, nsigma, iters, absval):
+    """csrc/detect.cu's two launches in plain PyTorch: the scan's
+    detection map, seeds from it, then K1's listed-tile schedule
+    (tests/test_torch_labeling.py) on the tiles with a detection; seg
+    and the root count from its labels."""
+    from test_torch_labeling import _schedule_model
+    H, W = img.shape
+    T = 32 if iters <= 60 else 16
+    det = _scan_model(img, std, excl, taps, nsigma, absval, T)
+    idx = torch.arange(1, H * W + 1, dtype=torch.int32).reshape(H, W)
+    lab = _schedule_model(torch.where(det, idx, H * W + 2), iters)
+    return (torch.where(lab < H * W + 2, lab, 0),
+            torch.sum(lab == idx, dtype=torch.int32))
+
+
+def _schedule_frame(kind, rng, H, W):
+    """A frame for the schedule models: image, std map, exclusion."""
+    img = rng.normal(0.0, 1.0, (H, W)).astype(np.float32)
+    std = rng.uniform(0.8, 1.2, (H, W)).astype(np.float32)
+    excl = np.zeros((H, W), bool)
+    if kind == "empty":
+        img[:] = 0.0
+    elif kind == "full":
+        img[:] = 50.0
+    elif kind == "sparse":
+        for y, x in ((10, 12), (40, 130), (70, 60)):
+            img[y - 2:y + 3, x - 3:x + 4] += 30.0
+    elif kind == "border":               # sources on every edge and corner
+        img[0, 20:30] += 40.0
+        img[H - 1, 100:140] += 40.0
+        img[30:50, 0] += 40.0
+        img[5:9, W - 1] += 40.0
+        img[0, 0] = img[H - 1, W - 1] = 90.0
+    elif kind == "nanstd":               # NaN and 0 in the std map
+        img[20:26, 30:36] += 30.0
+        std[22, 32] = np.nan
+        std[50:53, 100:103] = 0.0
+        std[rng.random((H, W)) < 0.02] = np.nan
+        img[60, 70] = np.nan
+    elif kind == "excl":                 # exclusions over and beside sources
+        img[30:40, 20:60] += 30.0
+        excl[33:36, :] = True
+        excl[rng.random((H, W)) < 0.05] = True
+    return img, std, excl
+
+
+@pytest.mark.parametrize("iters", [1, 24, 32, 48, 56])
+@pytest.mark.parametrize("kind", ["empty", "full", "sparse", "border",
+                                  "nanstd", "excl"])
+def test_detect_schedule_model_matches_plain(iters, kind):
+    """K5's scan (strips, the filter's staged halo, threshold, exclusion,
+    tiles listed) and its listed-tile label steps, run as a PyTorch
+    model, give the plain version's segments and root count exactly, in
+    the detection form (9 taps, std map) and the transient form (|x|,
+    no taps, no std), on a frame that is a multiple of neither the tile
+    nor the strip."""
+    rng = np.random.default_rng(iters * 7 + len(kind))
+    img, std, excl = (t(a) for a in _schedule_frame(kind, rng, 75, 141))
+    taps = tdet.gaussian_taps(3.0)
+    for args in ((img, std, excl, taps, 1.5, iters, False),
+                 (3.0 * img, None, excl, None, 6.0, iters, True)):
+        want = tdet._fused_detect_plain(*args)
+        got = _detect_model(*args)
+        assert_exact(got[0], want[0], "seg")
+        assert_exact(got[1], want[1], "n")

@@ -15,6 +15,18 @@ import torch
 
 torch.set_num_threads(1)
 
+# K7's "overflow" predicate frame: on a sky of 100 with read noise 0,
+# where gt(sp, sigclip) is +0 at the patch's (3, 2) pixel, m3 = 1e37 over
+# a noise of sqrt(1e-5) makes f = +inf beside sp = -inf, so c1 is NaN
+# there and only the 7x7 window test of m3 keeps the 7x7 median
+K7_OVERFLOW_PATCH = np.array(
+    [[1e2, 1e2, -1.7e38, 1e2, -1e37, 1e2, 1e2],
+     [1.7e38, -1e37, -1.7e38, -1.7e38, -1e37, 1e2, 1e2],
+     [-1e37, -1.7e38, 1e37, 0.0, 1e2, -1.7e38, -1e37],
+     [1e2, 1.7e38, 0.0, 0.0, -1e37, 0.0, 0.0],
+     [1e2, 1.7e38, 1e37, 1.7e38, -1e37, 1e2, 1e2],
+     [1.7e38, -1.7e38, 1.7e38, 0.0, 1.7e38, 1e2, 1e2]], np.float32)
+
 
 def t(a) -> torch.Tensor:
     """numpy (or jax) array -> CPU tensor (a copy: jax arrays are
