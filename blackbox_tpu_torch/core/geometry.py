@@ -10,14 +10,27 @@ the full-frame stages.  Channel indices on the mosaic are::
 
 The dataclass and the two canonical instruments are copies of the JAX
 package's (held equal by ``tests/test_torch_import.py``); the layout
-transforms work on torch tensors.
+transforms work on torch tensors (on any device) and, for the host
+code copied from the JAX package (the synthetic generator), on numpy
+arrays, as the JAX package's work on both of its array kinds.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+
+def _permute(a, dims):
+    return a.permute(*dims) if isinstance(a, torch.Tensor) else \
+        a.transpose(dims)
+
+
+def _cat(parts, axis):
+    return torch.cat(parts, dim=axis) if isinstance(parts[0], torch.Tensor) \
+        else np.concatenate(parts, axis=axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +88,7 @@ class CCDGeometry:
         """Usable horizontal-overscan rows after edge cuts."""
         return max(self.ysize_os - self.ncut_hori, 0)
 
-    def split_raw(self, raw: torch.Tensor):
+    def split_raw(self, raw):
         """Raw mosaic -> (chan_data, os_vert, os_hori) stacks.
 
         chan_data : (n_chan, ysize_chan, xsize_chan)
@@ -86,32 +99,33 @@ class CCDGeometry:
         ``(iy, ix) = divmod(c, nx)`` with the bottom row first.
         """
         ny, nx, dy, dx = self.ny, self.nx, self.dy, self.dx
-        chans = raw.reshape(ny, dy, nx, dx).permute(0, 2, 1, 3)
+        chans = _permute(raw.reshape(ny, dy, nx, dx), (0, 2, 1, 3))
         chans = chans.reshape(self.n_chan, dy, dx)
         ych, xch = self.ysize_chan, self.xsize_chan
-        chan_data = torch.cat([chans[:nx, :ych, :xch],
-                               chans[nx:, self.ysize_os:, :xch]], dim=0)
-        os_vert = chans[:, :, xch + self.ncut_vert:dx - 1].contiguous()
+        chan_data = _cat([chans[:nx, :ych, :xch],
+                          chans[nx:, self.ysize_os:, :xch]], 0)
+        os_vert = chans[:, :, xch + self.ncut_vert:dx - 1]
+        if isinstance(os_vert, torch.Tensor):
+            os_vert = os_vert.contiguous()
         # keep the rows farthest from the data section (nearest the CCD
         # centre): bottom channels -> last rows, top channels -> first
         h = self.os_hori_height
-        os_hori = torch.cat([chans[:nx, dy - h:dy, :], chans[nx:, 0:h, :]],
-                            dim=0)
+        os_hori = _cat([chans[:nx, dy - h:dy, :], chans[nx:, 0:h, :]], 0)
         return chan_data, os_vert, os_hori
 
-    def assemble(self, chan_data: torch.Tensor) -> torch.Tensor:
+    def assemble(self, chan_data):
         """Channel stack (n_chan, ych, xch) -> reduced mosaic."""
         ny, nx = self.ny, self.nx
         ych, xch = chan_data.shape[1], chan_data.shape[2]
-        return (chan_data.reshape(ny, nx, ych, xch).permute(0, 2, 1, 3)
-                .reshape(ny * ych, nx * xch))
+        return _permute(chan_data.reshape(ny, nx, ych, xch),
+                        (0, 2, 1, 3)).reshape(ny * ych, nx * xch)
 
-    def disassemble(self, mosaic: torch.Tensor) -> torch.Tensor:
+    def disassemble(self, mosaic):
         """Reduced mosaic -> channel stack (inverse of :meth:`assemble`)."""
         ny, nx = self.ny, self.nx
         ych, xch = self.ysize_chan, self.xsize_chan
-        return (mosaic.reshape(ny, ych, nx, xch).permute(0, 2, 1, 3)
-                .reshape(ny * nx, ych, xch))
+        return _permute(mosaic.reshape(ny, ych, nx, xch),
+                        (0, 2, 1, 3)).reshape(ny * nx, ych, xch)
 
 
 # canonical instruments ------------------------------------------------------

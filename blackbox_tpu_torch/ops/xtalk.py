@@ -81,3 +81,17 @@ def xtalk_correct_mosaic(mosaic, mask, coeffs, ny: int = 2, nx: int = 8):
     if victim_ok is not None:
         corr = torch.where(victim_ok, corr, 0.0)
     return mosaic - corr
+
+
+def load_coeff_file(path: str, n_chan: int = 16) -> np.ndarray:
+    """Parse a crosstalk coefficient ASCII file (victim source correction)."""
+    coeffs = np.zeros((n_chan, n_chan), np.float64)
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line or line.startswith(("#", "victim")):
+                continue
+            parts = line.split()
+            v, s = int(parts[0]) - 1, int(parts[1]) - 1
+            coeffs[s, v] = float(parts[2])
+    return coeffs

@@ -23,8 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from blackbox_tpu_torch.config import (GAIN, SATLEVEL, SIGCLIP,
-                                       SUBTRACT_MBIAS, get_par)
+from blackbox_tpu_torch.config import ReductionSettings, get_par
 from blackbox_tpu_torch.core import maskbits
 from blackbox_tpu_torch.core.geometry import CCDGeometry
 from blackbox_tpu_torch.ops.background import background_mesh, mini2back
@@ -75,38 +74,53 @@ class ReduceContext:
     fwhm_guess: float = 3.0
 
     @classmethod
-    def from_defaults(cls, geom: CCDGeometry, telescope: str = "ML1",
+    def from_settings(cls, s: ReductionSettings, telescope: str = "ML1",
                       **overrides):
         """The context the JAX package's ``ReduceContext.from_settings``
-        builds from default ``ReductionSettings`` on ``geom``."""
+        builds from the same settings (a copy of its rules)."""
+        geom = s.geometry
         C = geom.n_chan
-        gains = np.resize(np.asarray(get_par(GAIN, telescope), np.float32), C)
-        satlev = np.resize(np.asarray(get_par(SATLEVEL, telescope),
+        gains = np.resize(np.asarray(get_par(s.gain, telescope),
+                                     np.float32), C)
+        satlev = np.resize(np.asarray(get_par(s.satlevel, telescope),
                                       np.float32), C)
         mode = "ML" if telescope.startswith("ML") else "BG"
         kw = dict(
             geom=geom, gains=tuple(gains.tolist()),
             satlevel_adu=tuple(satlev.tolist()), telescope=telescope,
-            os_params=OverscanParams(voscan_poldeg=3, mode=mode),
+            os_params=OverscanParams(voscan_poldeg=s.voscan_poldeg,
+                                     mode=mode),
             lac_params=LACosmicParams(
-                sigclip=float(get_par(SIGCLIP, telescope)), sigfrac=0.01,
-                objlim=3.0, niter=3, sepmed=False, windowed=True),
-            det_params=DetectParams(nsigma=1.5, npix_min=3,
-                                    max_sources=20000),
-            sat_params=SatDetParams(bin_factor=16),
-            psf_params=PSFParams(size=25),
-            bkg_boxsize=min(256, geom.red_shape[0] // 4),
-            bkg_filtersize=3,
-            bkg_nsigma=3.0,
-            # radii of 0.66, 1.5, 5 FWHM at the nominal 3-px seeing
-            apphot_radii=tuple(r * 3.0 for r in (0.66, 1.5, 5.0)),
-            correct_nonlin=False,
-            subtract_mbias=bool(get_par(SUBTRACT_MBIAS, telescope)),
-            detect_sats=True,
-            detect_sat_segments=False,
+                sigclip=float(get_par(s.sigclip, telescope)),
+                sigfrac=s.sigfrac, objlim=s.objlim, niter=s.niter,
+                sepmed=s.sepmed, windowed=not s.sepmed),
+            det_params=DetectParams(nsigma=s.det_nsigma,
+                                    npix_min=s.det_npix_min,
+                                    max_sources=s.max_sources),
+            sat_params=SatDetParams(bin_factor=s.sat_bin),
+            # the vignette caps at the 25 px design stamp
+            psf_params=PSFParams(size=min(s.size_vignet, 25) | 1),
+            bkg_boxsize=min(s.bkg_boxsize, geom.red_shape[0] // 4),
+            bkg_filtersize=s.bkg_filtersize,
+            bkg_nsigma=s.bkg_nsigma,
+            # settings radii are in units of FWHM, resolved to pixels at
+            # the nominal 3-px seeing
+            apphot_radii=tuple(float(r) * 3.0 for r in s.apphot_radii),
+            correct_nonlin=s.correct_nonlin,
+            subtract_mbias=bool(get_par(s.subtract_mbias, telescope)),
+            detect_sats=s.detect_sats,
+            detect_sat_segments=s.detect_sat_segments,
         )
         kw.update(overrides)
         return cls(**kw)
+
+    @classmethod
+    def from_defaults(cls, geom: CCDGeometry, telescope: str = "ML1",
+                      **overrides):
+        """:meth:`from_settings` of the default ``ReductionSettings`` on
+        ``geom``."""
+        return cls.from_settings(ReductionSettings(geometry=geom), telescope,
+                                 **overrides)
 
     @classmethod
     def from_reference(cls, ref):

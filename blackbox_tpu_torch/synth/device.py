@@ -39,8 +39,15 @@ def make_science_device(gen: torch.Generator, geom: CCDGeometry,
                         nstars: int = 4000, sky_e: float = 300.0,
                         fwhm: float = 3.0, ncosmics: int = 800,
                         trail: bool = True, nsat: int = 20,
-                        flux_range=(2e3, 2e5), telescope: str = "ML1"):
+                        flux_range=(2e3, 2e5), telescope: str = "ML1",
+                        stars=None):
     """Synthetic raw science frame on ``gen``'s device.
+
+    ``stars`` — optional (x, y, flux [e-]) of every point source, in
+    place of the ``nstars`` random stars and ``nsat`` saturated ones
+    (a later visit of the same field: the same stars moved and scaled,
+    plus new sources).  Each source is a delta at its integer pixel
+    convolved with the Moffat PSF.
 
     Returns (chan_data, os_vert, os_hori) float32 stacks shaped like
     ``geom.split_raw`` output, plus a truth dict (star x, y, flux).
@@ -61,14 +68,19 @@ def make_science_device(gen: torch.Generator, geom: CCDGeometry,
                                                  np.float32), C), device=dev)
 
     # ---- star field: scattered deltas -> FFT Moffat convolution ----
-    xs = uniform(nstars, 8.0, W - 8.0)
-    ys = uniform(nstars, 8.0, H - 8.0)
-    fluxes = torch.exp(uniform(nstars, float(np.log(flux_range[0])),
-                               float(np.log(flux_range[1]))))
-    if nsat:
-        xs = torch.cat([xs, uniform(nsat, 20.0, W - 20.0)])
-        ys = torch.cat([ys, uniform(nsat, 20.0, H - 20.0)])
-        fluxes = torch.cat([fluxes, torch.full((nsat,), 5e7, device=dev)])
+    if stars is not None:
+        xs, ys, fluxes = (torch.as_tensor(v, dtype=torch.float32,
+                                          device=dev) for v in stars)
+    else:
+        xs = uniform(nstars, 8.0, W - 8.0)
+        ys = uniform(nstars, 8.0, H - 8.0)
+        fluxes = torch.exp(uniform(nstars, float(np.log(flux_range[0])),
+                                   float(np.log(flux_range[1]))))
+        if nsat:
+            xs = torch.cat([xs, uniform(nsat, 20.0, W - 20.0)])
+            ys = torch.cat([ys, uniform(nsat, 20.0, H - 20.0)])
+            fluxes = torch.cat([fluxes,
+                                torch.full((nsat,), 5e7, device=dev)])
 
     delta = torch.zeros((H, W), dtype=torch.float32, device=dev)
     iy = torch.clamp(ys.long(), 0, H - 1)

@@ -49,19 +49,42 @@ Phases, each printing its own lines:
    iterations on the whole calibrated 10560² mosaic, mask and read
    noise the reduction passed it, K3 on the frame's two 41 x 41
    background meshes to 10560² (beside ``torch.linalg.multi_dot``).
-7. One JSON line with the kernels' counts and times, then the last
+7. File to file through the port's driver (``pipeline/driver.Pipeline
+   .process_file``).  First the TINY night of
+   ``tests/test_torch_driver.py`` (3 bias, 3 flat, 2 visits of field
+   42, the first adopted as the field reference, the second with a
+   transient) on the card and again on the CPU (plain versions), held
+   together by ``tests/night_parity.py`` (statuses, products, keywords
+   and flags, masks bit for bit, images, catalogs and transients at
+   the tier-1 parity tolerances).  Then a full MeerLICHT night of the
+   same sequence, raw uint16 FITS made on the card (``night_phase``;
+   the visits without a satellite trail, which would send them to QC
+   red through a fault the port matches),
+   reduced file to file: every frame reduced, masters built and
+   applied, astrometry and photometric calibration, the first visit
+   adopted as the reference, the second subtracted (``run_subtraction``
+   on the two-pass remap: its pointing is a few pixels off) with at
+   least 16 of its 20 injected transients in the published catalog and
+   Z-FRATIO within 5% of the true 1.25, the compiled Rice coder in use.
+   One line a frame: wall, device (the synchronised calibration +
+   extraction and subtraction spans) and host ms; peak memory and the
+   phase's seconds.
+8. One JSON line with the kernels' counts and times, then the last
    line ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before each of phases 3, 4 and 5
-and read just after it: every kernel of a phase's path must have moved,
-K1 must show 1 launch per catalog frame and 2 per science frame (its
-48 transient steps are one launch), K6 6 per science frame, K7 3 per frame it
-calibrates (it counts iterations, four CUDA launches each) and K2 none
-in phase 5.  Any failure raises: the script then exits non-zero and
-prints no ok line.
-It needs a CUDA device and the repository's port package.
+The launch counters are zeroed just before each of phases 3, 4, 5 and
+7's full night and read just after it: every kernel of a phase's path
+must have moved, K1 must show 1 launch per catalog frame and 2 per
+science frame (its 48 transient steps are one launch), K6 6 per science
+frame, K7 3 per frame it calibrates (it counts iterations, four CUDA
+launches each) and K2 none in phase 5; the night must show K1 3 times
+(two catalogs, one subtraction) and K6 6 times.  Any failure raises:
+the script then exits non-zero and prints no ok line.
+It needs a CUDA device and the repository's port package, and the
+``tests/night_parity.py`` helper beside it.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -700,7 +723,8 @@ def check_frame(out, ctx, label, ms, card):
     fwhm = float(st["psf_fwhm_pix"])
     print(f"{label}: {ms:.1f} ms, nobjects {nobj}, ncosmics {ncr}, nsats "
           f"{nsat}, seeing {float(st['s_seeing_pix']):.2f} px, PSF "
-          f"{int(st['psf_nstars'])} stars, FWHM {fwhm:.2f} px [{card}]")
+          f"{int(st['psf_nstars'])} stars, FWHM {fwhm:.2f} px, elongation "
+          f"STD {float(st['s_elostd']):.2f} (QC red above 10) [{card}]")
     if not 3000 <= nobj <= 5000:
         raise AssertionError(f"{label}: nobjects {nobj} outside "
                              "3000..5000 (4020 sources injected)")
@@ -1070,6 +1094,306 @@ def compare_default(ctx, card, xtalk, first):
         raise AssertionError(f"cosmic-mask Jaccard {jac}")
 
 
+# ---------------------------------------------------------------- phase 7
+
+NIGHT_DATE = "20260301"
+NIGHT_SHIFT = (3, -2)   # (dx, dy) px of the second visit's pointing
+NIGHT_SCALE = 0.8       # the second visit's transparency: Z-FRATIO 1.25
+
+
+def raw_mosaic(geom, chan, osv, osh):
+    """The raw uint16 mosaic whose ``geom.split_raw`` gives back the
+    stacks (``chan``, ``osv``, ``osh``, ADU, rounded): the inverse of
+    the split, with the cut overscan columns filled at the bias level
+    (the split drops them), on the stacks' device."""
+    C, (ny, nx, dy, dx) = geom.n_chan, (geom.ny, geom.nx, geom.dy, geom.dx)
+    ych, xch, h = geom.ysize_chan, geom.xsize_chan, geom.os_hori_height
+    full = osv[:, :, :1].expand(C, dy, dx).clone()
+    full[:, :, xch + geom.ncut_vert:dx - 1] = osv
+    full[:nx, dy - h:dy, :] = osh[:nx]
+    full[nx:, 0:h, :] = osh[nx:]
+    full[:nx, :ych, :xch] = chan[:nx]
+    full[nx:, geom.ysize_os:, :xch] = chan[nx:]
+    raw = full.reshape(ny, nx, dy, dx).permute(0, 2, 1, 3).reshape(
+        geom.raw_shape)
+    return torch.clamp(torch.round(raw), 0, 65535).to(torch.int32)
+
+
+def write_raw(path, geom, stacks, imgtype, mjd, exptime, ra, dec):
+    """One raw frame as the telescope writes it (uint16, survey
+    header), from its channel stacks on the card."""
+    from blackbox_tpu_torch.io.fits import write_image
+    from blackbox_tpu_torch.synth.observation import raw_header
+    raw = raw_mosaic(geom, *stacks).cpu().numpy().astype(np.uint16)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_image(path, raw, raw_header("ML1", imgtype, mjd, exptime, "q", 42,
+                                      ra, dec))
+
+
+def tiny_night_phase(card):
+    """Phase 7, first part: the TINY night of tests/test_torch_driver.py
+    through the port's Pipeline on the card and on the CPU (plain
+    versions), each in its own copy of the raw tree, held together by
+    tests/night_parity.py: statuses, product names, keywords and flags,
+    masks bit for bit, images, catalogs and transients at the tier-1
+    parity tolerances.  Quicklooks are off: this machine has no PIL
+    (tier-1 covers them on the CPU)."""
+    import shutil
+    import tempfile
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import night_parity as NP
+    from blackbox_tpu_torch.config.defaults import ReductionSettings
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.orchestration.paths import DataTree
+    from blackbox_tpu_torch.pipeline.driver import Pipeline
+
+    with tempfile.TemporaryDirectory() as base:
+        files, stars = NP.tiny_night(os.path.join(base, "raw"))
+        s = ReductionSettings(geometry=TINY, pixscale=NP.PIXSCALE,
+                              create_ref=True, make_quicklooks=False)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            root = os.path.join(base, device)
+            shutil.copytree(os.path.join(base, "raw"), root)
+            pipe = Pipeline(DataTree(root, "ML1"), "ML1", s, NP.tiny_ctx(s),
+                            ref_catalog=NP.ref_catalog(stars,
+                                                       TINY.red_shape),
+                            device=device)
+            runs[device] = ([pipe.process_file(
+                os.path.join(root, os.path.relpath(f, os.path.join(
+                    base, "raw")))) for f in files], root)
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        statuses = [r.status for r in gpu[0]]
+        errors = [r.error for r in gpu[0] if r.error]
+        if statuses != ["reduced"] * len(files):
+            raise AssertionError(f"TINY night on the card: {statuses} "
+                                 f"{errors}")
+        x, y = NP.check_night(gpu, cpu, NP.overscan_level(cpu))
+        h = gpu[0][-1].header
+    d = np.hypot(x - NP.TRANS[0], y - NP.TRANS[1])
+    if d.min() >= 2.0:
+        raise AssertionError(f"TINY night: no transient within 2 px of "
+                             f"{NP.TRANS[:2]}")
+    print(f"TINY night ({len(files)} frames) on the card vs the CPU: "
+          f"statuses, products, keywords and flags equal, masks bit for "
+          f"bit, images, catalogs and transients within the parity "
+          f"tolerances; second visit T-NTRANS {h['T-NTRANS']}, Z-FRATIO "
+          f"{h['Z-FRATIO']}, the transient found {d.min():.2f} px from "
+          f"its place [{card}]")
+
+
+def night_phase(ctx, card):
+    """Phase 7, second part: a full MeerLICHT night, file to file, through
+    the port's Pipeline on the card.  3 bias, 3 flat and 2 object frames
+    of field 42 (10600 x 10816 uint16 raw, made on the card by
+    make_science_device and written with the port's io/fits), settings
+    ReductionSettings(geometry=MEERLICHT, create_ref=True,
+    subtract_mbias=True, make_quicklooks=False) (this machine has no
+    PIL; tier-1 covers the quicklooks on the CPU).  The first visit
+    (4000 stars + 20 saturated, 800 cosmics) is adopted as the field
+    reference; the second points NIGHT_SHIFT pixels off (the two-pass
+    remap), at NIGHT_SCALE of the first's transparency, with its own
+    noise and cosmics and NTRANS PSF-shaped transients.  Neither visit
+    carries a satellite trail: the synthetic trail leaves 3-pixel
+    fragments beside its mask whose second moments are degenerate
+    (elongation ~1e3, ``ops/detection.moments_shape`` floors B² at
+    1e-6 as the JAX package does), which sends S-ELOSTD to ~32 (phase
+    3 prints it) and the frame to QC red, so no reference would be
+    adopted (ROADMAP Queue 3).  Returns the launch counts of the
+    night."""
+    import tempfile
+    from blackbox_tpu_torch.astro.time import iso2mjd, mjd2iso
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    from blackbox_tpu_torch.config.defaults import ReductionSettings
+    from blackbox_tpu_torch.io import rice
+    from blackbox_tpu_torch.io.fits import read_fits
+    from blackbox_tpu_torch.orchestration.paths import DataTree
+    from blackbox_tpu_torch.pipeline import driver
+    from blackbox_tpu_torch.synth.device import make_science_device
+
+    if rice.coder() != "compiled":
+        raise AssertionError("the compiled Rice coder did not load")
+    print(f"Rice coder: {rice.coder()} [{card}]")
+    geom = ctx.geom
+    H, W = geom.red_shape
+    s = ReductionSettings(geometry=geom, create_ref=True,
+                          subtract_mbias=True, make_quicklooks=False)
+    pixscale, ra0, dec0 = s.pixscale, 150.0, -30.0
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        tree = DataTree(root, "ML1")
+        rawdir = tree.raw_dir(NIGHT_DATE)
+        mjd0 = iso2mjd(f"{NIGHT_DATE[:4]}-{NIGHT_DATE[4:6]}-"
+                       f"{NIGHT_DATE[6:]}T23:00:00.000")
+        files = []
+
+        def write(stacks, imgtype, k, exptime, ra, dec):
+            mjd = mjd0 + k * 120.0 / 86400.0
+            ts = mjd2iso(mjd).replace("-", "").replace(":", "")
+            path = os.path.join(rawdir, f"ML1_{ts[:8]}_{ts[9:15]}.fits")
+            write_raw(path, geom, stacks, imgtype, mjd, exptime, ra, dec)
+            files.append(path)
+
+        t0 = time.time()
+        for k in range(6):
+            gen = torch.Generator(device="cuda").manual_seed(700 + k)
+            flat = k >= 3
+            stacks = make_science_device(gen, geom, nstars=0,
+                                         sky_e=2e4 if flat else 0.0,
+                                         ncosmics=0, trail=False,
+                                         nsat=0)[:3]
+            write(stacks, "flat" if flat else "bias", k,
+                  3.0 if flat else 0.0, ra0 + (k - 3) * 15.0 / 3600, dec0)
+        gen = torch.Generator(device="cuda").manual_seed(SEEDS[0])
+        *stacks, truth = make_science_device(gen, geom, nstars=4000,
+                                             ncosmics=800, trail=False,
+                                             nsat=20)
+        write(stacks, "object", 6, 60.0, ra0, dec0)
+        # the second visit: the same stars moved and dimmed, 20 new
+        # point sources; its pointing follows the move
+        dx, dy = NIGHT_SHIFT
+        rng = np.random.default_rng(7)
+        edge = min(300, H // 6)
+        tx = np.floor(rng.uniform(edge, W - edge, NTRANS))
+        ty = np.floor(rng.uniform(edge, H - edge, NTRANS))
+        stars2 = (torch.cat([truth["x"] + dx, torch.as_tensor(
+                      tx, dtype=torch.float32, device="cuda")]),
+                  torch.cat([truth["y"] + dy, torch.as_tensor(
+                      ty, dtype=torch.float32, device="cuda")]),
+                  torch.cat([truth["flux"] * NIGHT_SCALE, torch.full(
+                      (NTRANS,), 3.0e4, device="cuda")]))
+        gen = torch.Generator(device="cuda").manual_seed(SEEDS[1])
+        stacks = make_science_device(gen, geom, ncosmics=800, trail=False,
+                                     stars=stars2)[:3]
+        wcs1 = TanWCS.simple(ra0, dec0, pixscale, (H, W))
+        ra2, dec2 = wcs1.pix2sky(W / 2 - dx, H / 2 - dy)
+        write(stacks, "object", 7, 60.0, float(ra2), float(dec2))
+        del stacks, stars2
+        torch.cuda.synchronize()
+        write_s = time.time() - t0
+        nbytes = sum(os.path.getsize(f) for f in files)
+
+        # calibration stars: the first visit's unsaturated sources
+        xs, ys, fl = (truth[k].cpu().numpy().astype(np.float64)
+                      for k in ("x", "y", "flux"))
+        keep = fl < 1e6
+        ra, dec = wcs1.pix2sky(np.floor(xs[keep]), np.floor(ys[keep]))
+        mag = 25.0 - 2.5 * np.log10(fl[keep] / 60.0)
+        del truth
+
+        def query(ra_c, dec_c, radius):
+            return {"ra": ra, "dec": dec, "mag": mag}
+
+        pipe = driver.Pipeline(tree, "ML1", s,
+                               dataclasses.replace(ctx, subtract_mbias=True),
+                               ref_catalog=query)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        res = []
+        for f in files:
+            res.append(pipe.process_file(f))
+            r = res[-1]
+            t = r.timing
+            if r.header is not None and "S-P" in r.header:
+                h = r.header
+                print(f"  {os.path.basename(f)}: " + ", ".join(
+                    f"{k} {h.get(k)}" for k in (
+                        "QC-FLAG", "MBIAS-P", "MFLAT-P", "S-P", "NOBJECTS",
+                        "A-P", "A-RMS", "PC-P", "PC-ZP", "REF-NEW",
+                        "TRANS-P", "T-NTRANS", "Z-FRATIO", "TQC-FLAG"))
+                      + ", red keys " + str([h[k] for k in h.keys()
+                                             if k.startswith("QCRED")]))
+            ms = {k: v * 1e3 for k, v in t.items()}
+            dev_ms = (ms.get(driver.SPAN_CALIB, 0.0)
+                      + ms.get(driver.SPAN_SUBTRACT, 0.0))
+            host_ms = ms["wall"] - dev_ms
+            parts = (driver.SPAN_MASTERS, driver.SPAN_READ, driver.SPAN_RICE,
+                     driver.SPAN_REF, driver.SPAN_COMPONENTS)
+            other = host_ms - sum(ms.get(k, 0.0) for k in parts)
+            kind = str(r.header["IMAGETYP"]).strip() if r.header else "?"
+            print(f"file -> file {os.path.basename(f)} ({kind}): "
+                  f"{r.status}, wall {ms['wall']:.1f} ms, device "
+                  f"{dev_ms:.1f} ms (calibrate+extract "
+                  f"{ms.get(driver.SPAN_CALIB, 0.0):.1f}, run_subtraction "
+                  f"{ms.get(driver.SPAN_SUBTRACT, 0.0):.1f}), host "
+                  f"{host_ms:.1f} ms (" + ", ".join(
+                      f"{k} {ms.get(k, 0.0):.1f}" for k in parts)
+                  + f", other {other:.1f}) [{card}]")
+        torch.cuda.synchronize()
+        counts = read_counts("file -> file night", card,
+                             ("label_propagate", "median_filter",
+                              "gather_slot_windows", "fft_cols_split"))
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_night_flags(res, card)
+        trans = [p for p in res[-1].products
+                 if p.endswith("_red_trans.fits")][0]
+        cols = next(d for d, _ in read_fits(trans) if isinstance(d, dict))
+        found = check_night_transients(cols, tx, ty, card)
+    # one K1 launch a catalog (two object frames) and one for the
+    # subtraction's transients; six K6 launches for the one subtraction
+    if counts["label_propagate"] != 2 + 1:
+        raise AssertionError(f"label_propagate: {counts['label_propagate']}"
+                             " launches for 2 catalogs and 1 subtraction")
+    if counts["fft_cols_split"] != 6:
+        raise AssertionError(f"fft_cols_split: {counts['fft_cols_split']} "
+                             "launches for 1 subtraction")
+    print(f"file -> file night: {len(files)} frames ({nbytes / 2 ** 30:.2f}"
+          f" GiB of raw files, written in {write_s:.1f} s), {found} of "
+          f"{NTRANS} transients recovered, peak memory {peak_gib:.2f} GiB, "
+          f"phase {time.time() - t_phase:.1f} s [{card}]")
+    return counts
+
+
+def check_night_flags(res, card):
+    """The full night's statuses and flags."""
+    bad = [(r.status, r.error) for r in res if r.status != "reduced"]
+    if bad:
+        raise AssertionError(f"night frames not reduced: {bad}")
+    for i, r in enumerate(res[6:]):
+        h = r.header
+        for k in ("MBIAS-P", "MFLAT-P", "S-P", "A-P", "PC-P", "PSF-P"):
+            if h.get(k) is not True:
+                raise AssertionError(f"object frame {i}: {k} = {h.get(k)}")
+        nobj = int(h["NOBJECTS"])
+        if not 3000 <= nobj <= 5000:
+            raise AssertionError(f"object frame {i}: NOBJECTS {nobj} outside"
+                                 " 3000..5000 (4020 sources injected)")
+    h1, h2 = res[6].header, res[7].header
+    if h1.get("REF-NEW") is not True:
+        raise AssertionError("the first visit was not adopted as reference")
+    if h2.get("TRANS-P") is not True:
+        raise AssertionError(f"the second visit: TRANS-P {h2.get('TRANS-P')}"
+                             f", TQC-FLAG {h2.get('TQC-FLAG')}")
+    fr = float(h2["Z-FRATIO"])
+    if abs(fr * NIGHT_SCALE - 1.0) > 0.05:
+        raise AssertionError(f"Z-FRATIO {fr}, true {1 / NIGHT_SCALE}")
+    print(f"file -> file night flags: MBIAS-P, MFLAT-P, S-P, A-P, PC-P true "
+          f"on both visits (NOBJECTS {h1['NOBJECTS']}, {h2['NOBJECTS']}; "
+          f"A-RMS {h1['A-RMS']}, {h2['A-RMS']} arcsec; PC-ZP {h1['PC-ZP']}, "
+          f"{h2['PC-ZP']}), REF-NEW on the first, TRANS-P on the second: "
+          f"T-NTRANS {h2['T-NTRANS']}, Z-FRATIO {fr} (true "
+          f"{1 / NIGHT_SCALE}), Z-DXRMS {h2['Z-DXRMS']}, TQC-FLAG "
+          f"{h2.get('TQC-FLAG')} [{card}]")
+
+
+def check_night_transients(cols, tx, ty, card):
+    """At least 16 of the NTRANS transients in the published catalog,
+    within 2 px with positive flux."""
+    x = np.asarray(cols["X_PEAK"], np.float64) - 1
+    y = np.asarray(cols["Y_PEAK"], np.float64) - 1
+    pos = np.asarray(cols["E_FLUX_ZOGY"]) > 0
+    d = np.hypot(x[None, :] - tx[:, None], y[None, :] - ty[:, None])
+    found = int(((d < 2.0) & pos[None, :]).any(1).sum())
+    print(f"file -> file night: {found} of {NTRANS} transients in the "
+          f"published _red_trans.fits within 2 px with positive flux, "
+          f"{len(x)} rows [{card}]")
+    if found < 16:
+        raise AssertionError(f"night: {found} of {NTRANS} transients")
+    return found
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1156,9 +1480,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     results.append(check_k7(card, first.pop("k7")))
     results.append(check_k3(card, ctx, *first.pop("meshes")))
+    del first
+    torch.cuda.empty_cache()
+
+    # phase 7: file -> file through the driver, TINY on the card against
+    # the CPU, then a full night, its launches counted
+    tiny_night_phase(card)
+    c7 = night_phase(ctx, card)
 
     for r in results:
-        r["launches"] = c3[r["name"]] + c4[r["name"]] + c5[r["name"]]
+        r["launches"] = (c3[r["name"]] + c4[r["name"]] + c5[r["name"]]
+                         + c7[r["name"]])
+        r["file_to_file_launches"] = c7[r["name"]]
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

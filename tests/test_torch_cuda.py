@@ -675,3 +675,181 @@ def test_upsample_kernel_bands(dev, W, weights, mesh_kind):
         _same(a, b)
     assert bool(torch.isfinite(got[1]).all())
     assert bool(torch.isfinite(got[0]).all()) == (mesh_kind == "finite")
+
+
+def _to(x, device):
+    """Tensors (in dicts and dataclasses too) moved to ``device``."""
+    import dataclasses
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, dict):
+        return {k: _to(v, device) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _to(getattr(x, f.name), device)
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def test_resamplers_card_matches_cpu(dev):
+    """The gather resamplers and the two-pass remap on the card against
+    the CPU, on a rotated mapping: nearest samples exactly, Lanczos
+    sums at rtol 1e-5 of the frame's level."""
+    import numpy as np
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    from blackbox_tpu_torch.ops import warp
+    H = W = 256
+    wn = TanWCS.simple(150.0, -30.0, 0.5642, (H, W))
+    wr = TanWCS.simple(150.0015, -29.9985, 0.5642, (H, W), rot_deg=3.0)
+    g = torch.Generator().manual_seed(4)
+    img = 100 + 10 * torch.randn((H, W), generator=g)
+    mask = (torch.rand((H, W), generator=g) < 0.05).to(torch.uint8) * 4
+    ys, xs = (torch.from_numpy(a) for a in warp.remap_grid(wr, wn, (H, W)))
+    atol = 1e-5 * float(img.abs().max())
+    got = warp.lanczos_resample(img.to(dev), ys.to(dev), xs.to(dev))
+    torch.testing.assert_close(got.cpu(), warp.lanczos_resample(img, ys, xs),
+                               rtol=1e-5, atol=atol)
+    _same(warp.nearest_resample(mask.to(dev), ys.to(dev), xs.to(dev)).cpu(),
+          warp.nearest_resample(mask, ys, xs))
+    grid = warp.remap_grid_coarse(wr, wn, (H, W), step=32)
+    margin = warp.grid_row_margin(grid[0], step=32)
+    modes, fills = ("lanczos", "nearest"), (0.0, 64)
+    cpu = warp.resample_blocked((img, mask), modes, fills, grid,
+                                block_rows=64, margin=margin)
+    gpu = warp.resample_blocked((img.to(dev), mask.to(dev)), modes, fills,
+                                grid, block_rows=64, margin=margin)
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-5, atol=atol)
+    _same(gpu[1].cpu(), cpu[1])
+    sy, sx, _, _ = grid
+    ranges = warp.grid_shift_ranges(sy, sx, step=32, blocks=8)
+    coarse = (torch.tensor(sy, dtype=torch.float32),
+              torch.tensor(sx, dtype=torch.float32), 32)
+    cpu = warp.warp_shift2pass((img, mask), modes, fills, coarse, ranges)
+    gpu = warp.warp_shift2pass((img.to(dev), mask.to(dev)), modes, fills,
+                               (coarse[0].to(dev), coarse[1].to(dev), 32),
+                               ranges)
+    torch.testing.assert_close(gpu[0].cpu(), cpu[0], rtol=1e-5, atol=atol)
+    _same(gpu[1].cpu(), cpu[1])
+
+
+def _port_product(img, wcs):
+    """Background, detection, photometry and PSF of one synthetic frame
+    by the port on the CPU, as a SubtractionInput."""
+    from blackbox_tpu_torch.ops.background import background_mesh, mini2back
+    from blackbox_tpu_torch.ops.detection import (DetectParams,
+                                                  detect_segments,
+                                                  moments_shape,
+                                                  segment_catalog)
+    from blackbox_tpu_torch.ops.photometry import aperture_photometry
+    from blackbox_tpu_torch.ops.psf import (PSFParams, build_psf,
+                                            psf_photometry)
+    from blackbox_tpu_torch.pipeline.subtract import SubtractionInput
+    img = torch.as_tensor(img)
+    mesh, stdm = background_mesh(img, None, 64)
+    bkg = mini2back(mesh, img.shape, 64)
+    bstd = mini2back(stdm, img.shape, 64)
+    sub = img - bkg
+    params = DetectParams(nsigma=2.0, max_sources=256, label_iters=32)
+    seg, n = detect_segments(sub, bstd, None, params)
+    cat = segment_catalog(sub, bstd, seg, n, params)
+    cat.update(moments_shape(cat))
+    flux, ferr = aperture_photometry(sub, bstd, cat["x"], cat["y"],
+                                     (2.0, 5.0, 12.0))
+    cat["snr"] = flux[:, -1] / torch.clamp(ferr[:, -1], min=1e-9)
+    model = build_psf(sub, bstd, cat, tuple(img.shape),
+                      PSFParams(size=25, poldeg=1, snr_min=10.0))
+    fpsf, fpsferr = psf_photometry(sub, bstd, model, cat["x"], cat["y"])
+    return SubtractionInput(
+        image=img, bkg=bkg, bkg_std=bstd,
+        mask=torch.zeros(img.shape, dtype=torch.uint8), psf=model, wcs=wcs,
+        cat_x=cat["x"].numpy(), cat_y=cat["y"].numpy(),
+        cat_flux=fpsf.numpy(), cat_fluxerr=fpsferr.numpy(),
+        cat_valid=cat["valid"].numpy())
+
+
+@pytest.mark.parametrize("kind", ["shift2pass", "blocked"])
+def test_run_subtraction_card_matches_cpu(dev, kind):
+    """run_subtraction on both remap branches (a few-pixel pointing
+    offset, a 3-degree rotation), the card against the CPU at the CPU
+    parity tests' tolerances (tests/test_torch_subtract.py)."""
+    import numpy as np
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    from blackbox_tpu_torch.pipeline import subtract
+    from blackbox_tpu_torch.synth.generator import star_image
+    H = W = 256
+    ra, dec, rot = {"shift2pass": (150.0 + 1.9 / 3600, -30.0 - 1.2 / 3600,
+                                   0.0),
+                    "blocked": (150.0015, -29.9985, 3.0)}[kind]
+    w_new = TanWCS.simple(150.0, -30.0, 0.5642, (H, W))
+    w_ref = TanWCS.simple(ra, dec, 0.5642, (H, W), rot_deg=rot)
+    rng = np.random.default_rng(42)
+    xn, yn = rng.uniform(30, W - 30, 25), rng.uniform(30, H - 30, 25)
+    fl = np.exp(rng.uniform(np.log(8e3), np.log(8e4), 25))
+    xr, yr = w_ref.sky2pix(*w_new.pix2sky(xn, yn))
+    tx, ty = 101.4, 166.8
+    img_n = rng.poisson(star_image((H, W), np.stack(
+        [xn, yn, fl, np.full(25, 3.2)], 1), moffat_beta=20.0) + 60.0
+        + star_image((H, W), [[tx, ty, 4e4, 3.2]], moffat_beta=20.0))
+    img_r = rng.poisson(star_image((H, W), np.stack(
+        [xr, yr, fl * 1.8, np.full(25, 2.6)], 1), moffat_beta=20.0) + 110.0)
+    new = _port_product(img_n.astype(np.float32), w_new)
+    ref = _port_product(img_r.astype(np.float32), w_ref)
+    cpu = subtract.run_subtraction(new, ref)
+    gpu = subtract.run_subtraction(_to(new, dev), _to(ref, dev))
+    assert gpu.D.device.type == "cuda"
+    for k in ("z_fratio", "z_fratio_std", "z_dxrms", "z_dyrms", "z_nmatch",
+              "t_ntrans", "t_npos", "t_nneg", "t_nvetted"):
+        assert gpu.stats[k] == cpu.stats[k], k
+    scale = float(cpu.D.abs().max())
+    torch.testing.assert_close(gpu.D.cpu(), cpu.D, rtol=0, atol=2e-4 * scale)
+    torch.testing.assert_close(gpu.Scorr.cpu(), cpu.Scorr, rtol=0.05,
+                               atol=3e-3)
+    for k in ("valid", "sign"):
+        _same(gpu.trans_cat[k].cpu(), cpu.trans_cat[k])
+    v = cpu.trans_cat["valid"]
+    d = torch.hypot(gpu.trans_cat["x"].cpu()[v] - tx,
+                    gpu.trans_cat["y"].cpu()[v] - ty)
+    assert float(d.min()) < 1.5
+
+
+def test_process_file_card_matches_cpu(dev, tmp_path):
+    """One TINY object frame through the port's Pipeline on the card and
+    on the CPU, in two copies of one raw tree: the same status, product
+    names, keywords and flags, integer keywords and the mask bit for
+    bit."""
+    import os
+    import shutil
+    import numpy as np
+    from blackbox_tpu_torch.config.defaults import ReductionSettings
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.io.rice import read_rice
+    from blackbox_tpu_torch.orchestration.paths import DataTree
+    from blackbox_tpu_torch.pipeline.driver import Pipeline
+    from blackbox_tpu_torch.synth.observation import write_observation
+    raw = os.path.join("ML1", "raw", "ML1_20260301_231200.fits")
+    src = tmp_path / "raw"
+    write_observation(str(src / raw), TINY, np.random.default_rng(5),
+                      "object", mjd_start=61100.97, nstars=40, ncosmics=10,
+                      trail=False, nsat=0, sky_e=300.0)
+    s = ReductionSettings(geometry=TINY, create_ref=True,
+                          make_quicklooks=False)
+    res = {}
+    for device in ("cpu", "cuda"):
+        root = str(tmp_path / device)
+        shutil.copytree(src, root)
+        pipe = Pipeline(DataTree(root, "ML1"), "ML1", s, device=device)
+        res[device] = (root, pipe.process_file(os.path.join(root, raw)))
+    (rc, cpu), (rg, gpu) = res["cpu"], res["cuda"]
+    assert cpu.status == gpu.status == "reduced", (cpu.error, gpu.error)
+    assert [os.path.relpath(p, rc) for p in cpu.products] == \
+        [os.path.relpath(p, rg) for p in gpu.products]
+    assert set(cpu.header.keys()) == set(gpu.header.keys())
+    for k in cpu.header.keys():
+        a, b = cpu.header[k], gpu.header[k]
+        if not isinstance(a, float):
+            assert type(a) is type(b) and a == b, k
+    mask = [p for p in cpu.products if p.endswith("_mask.fits.fz")]
+    assert len(mask) == 1
+    a, _ = read_rice(mask[0])
+    b, _ = read_rice(os.path.join(rg, os.path.relpath(mask[0], rc)))
+    assert np.array_equal(a, b)

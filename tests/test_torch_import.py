@@ -52,6 +52,84 @@ SLICE_MODULES = [
     "blackbox_tpu_torch.pipeline.reduce",
     "blackbox_tpu_torch.pipeline.subtract",
     "blackbox_tpu_torch.synth.device",
+    "blackbox_tpu_torch.synth.generator",
+    "blackbox_tpu_torch.synth.observation",
+    "blackbox_tpu_torch.config.base",
+    "blackbox_tpu_torch.config.defaults",
+    "blackbox_tpu_torch.astro.wcs",
+    "blackbox_tpu_torch.astro.photcal",
+    "blackbox_tpu_torch.astro.time",
+    "blackbox_tpu_torch.astro.ephem",
+    "blackbox_tpu_torch.astro.vsop87",
+    "blackbox_tpu_torch.astro.astrometry",
+    "blackbox_tpu_torch.io.storage",
+    "blackbox_tpu_torch.io.fits",
+    "blackbox_tpu_torch.io.rice",
+    "blackbox_tpu_torch.io.psffits",
+    "blackbox_tpu_torch.qc",
+    "blackbox_tpu_torch.qc.ranges",
+    "blackbox_tpu_torch.qc.engine",
+    "blackbox_tpu_torch.orchestration.paths",
+    "blackbox_tpu_torch.orchestration.manifest",
+    "blackbox_tpu_torch.orchestration.headertable",
+    "blackbox_tpu_torch.orchestration.masterstore",
+    "blackbox_tpu_torch.utils.locks",
+    "blackbox_tpu_torch.utils.timing",
+    "blackbox_tpu_torch.pipeline.headers",
+    "blackbox_tpu_torch.pipeline.catalogs",
+    "blackbox_tpu_torch.pipeline.driver",
+    "blackbox_tpu_torch.report.quicklook",
+]
+
+# Host modules copied from blackbox_tpu, by dotted path under each
+# package, with the functions (``Class.method`` for methods) that
+# differ on purpose and why.  Everything else, docstrings and comments
+# aside, must be the original after the ``blackbox_tpu.`` ->
+# ``blackbox_tpu_torch.`` import rewrite.
+HOST_COPIES = {
+    "astro.wcs": {}, "astro.photcal": {}, "astro.time": {},
+    "astro.ephem": {}, "astro.vsop87": {}, "astro.astrometry": {},
+    "config.base": {}, "config.defaults": {},
+    "io.storage": {}, "io.fits": {},
+    "io.rice": {
+        "_build_lib": "builds into the package's _build/, never into the "
+                      "source tree, under a private name renamed into "
+                      "place",
+        "coder": "reports which coder (compiled or numpy) is loaded"},
+    "io.psffits": {
+        "psf_to_hdu": "reads the model's tensors, which may lie on the "
+                      "card",
+        "read_psf": "returns the port's PSFModel on a given device"},
+    "qc": {}, "qc.ranges": {}, "qc.engine": {},
+    "orchestration.paths": {}, "orchestration.manifest": {},
+    "orchestration.headertable": {},
+    "orchestration.masterstore": {
+        "MasterStore.__init__": "takes the device the masters are "
+                                "stacked on",
+        "MasterStore._build": "stacks the frames on that device with the "
+                              "port's pipeline.masters"},
+    "utils.locks": {},
+    "utils.timing": {
+        "device_memory_stats": "reads PyTorch's CUDA allocator",
+        "timer": "synchronises a CUDA device; can sum spans into a dict",
+        "profile_trace": "torch.profiler instead of jax.profiler"},
+    "pipeline.headers": {},
+    "pipeline.catalogs": {
+        "device_cat_to_columns": "moves the catalog's tensors to the host "
+                                 "first"},
+    "report.quicklook": {},
+    "synth.generator": {}, "synth.observation": {},
+}
+
+# single host functions copied into modules of the port that are not
+# copies as a whole: (module, function)
+HOST_FUNCTIONS = [
+    ("ops.warp", "remap_grid"), ("ops.warp", "remap_grid_coarse"),
+    ("ops.warp", "grid_shift_ranges"), ("ops.warp", "grid_row_margin"),
+    ("ops.xtalk", "load_coeff_file"),
+    ("ops.nonlin", "convert_reference_splines"),
+    ("ops.nonlin", "convert_reference_splines_to_npy"),
+    ("pipeline.subtract", "_measure_scaling"),
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -267,3 +345,100 @@ def test_launcher_signatures_match_sources():
     assert set(declared) == set(kernels._SIGNATURES)
     for name, argtypes in kernels._SIGNATURES.items():
         assert tuple(kind[a] for a in argtypes) == declared[name], name
+
+
+def _source(pkg, dotted):
+    import pathlib
+    base = pathlib.Path(REPO, pkg, *dotted.split("."))
+    path = base / "__init__.py" if base.is_dir() else base.with_suffix(".py")
+    text = path.read_text()
+    if pkg == "blackbox_tpu":
+        text = text.replace("blackbox_tpu.", "blackbox_tpu_torch.")
+    return text
+
+
+def _without_docstrings(tree):
+    """``tree`` with every docstring (module, class, function) removed:
+    the copies' docstrings and comments speak of the port, their code
+    is the original's."""
+    import ast
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant) and isinstance(
+                        first.value.value, str):
+                node.body = node.body[1:] or [ast.Pass()]
+    return tree
+
+
+def _top_level(text, skip=()):
+    """ast.dump of each top-level statement, docstrings aside, but the
+    functions in ``skip`` (methods as ``Class.method``), by name."""
+    import ast
+    body = _without_docstrings(ast.parse(text)).body
+    out, names = [], set()
+    for node in body:
+        name = getattr(node, "name", None)
+        if isinstance(node, ast.ClassDef):
+            kept = []
+            for m in node.body:
+                full = f"{name}.{getattr(m, 'name', None)}"
+                names.add(full)
+                if full not in skip:
+                    kept.append(m)
+            node.body = kept
+        if name is not None:
+            names.add(name)
+        if name not in skip:
+            out.append(ast.dump(node))
+    return out, names
+
+
+@pytest.mark.parametrize("dotted", sorted(HOST_COPIES))
+def test_host_copy(dotted):
+    """The port's copy of a host module is the JAX package's code, but
+    for the functions named in HOST_COPIES, each of which it must
+    have."""
+    skip = HOST_COPIES[dotted]
+    want, _ = _top_level(_source("blackbox_tpu", dotted), skip)
+    got, names = _top_level(_source("blackbox_tpu_torch", dotted), skip)
+    assert set(skip) <= names, sorted(set(skip) - names)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g == w
+
+
+@pytest.mark.parametrize("dotted, fn", HOST_FUNCTIONS)
+def test_host_function_copy(dotted, fn):
+    """A single copied host function is the JAX package's code."""
+    import ast
+
+    def body(pkg):
+        found = [node for node in _without_docstrings(
+                     ast.parse(_source(pkg, dotted))).body
+                 if getattr(node, "name", None) == fn]
+        assert len(found) == 1, (pkg, dotted, fn)
+        return ast.dump(found[0])
+
+    assert body("blackbox_tpu_torch") == body("blackbox_tpu")
+
+
+@pytest.mark.parametrize("tel", ["ML1", "BG3"])
+def test_from_settings_matches_jax(tel):
+    """The port's ReduceContext.from_settings equals the JAX package's
+    on settings away from the defaults, overrides included."""
+    from blackbox_tpu.config.defaults import ReductionSettings as JS
+    from blackbox_tpu.pipeline.reduce import ReduceContext as JCtx
+    from blackbox_tpu_torch.config.defaults import ReductionSettings
+    from blackbox_tpu_torch.core import geometry as tg
+    from blackbox_tpu_torch.pipeline.reduce import ReduceContext
+    kw = dict(sepmed=True, niter=2, det_nsigma=2.5, max_sources=512,
+              sat_bin=4, size_vignet=21, bkg_boxsize=64,
+              apphot_radii=[1.0, 2.0], correct_nonlin=True,
+              subtract_mbias=True, voscan_poldeg=2)
+    want = JCtx.from_settings(JS(**kw), tel, fit_psf=False)
+    got = ReduceContext.from_settings(
+        ReductionSettings(geometry=tg.MEERLICHT, **kw), tel, fit_psf=False)
+    _assert_same_context(got, want)

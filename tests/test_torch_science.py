@@ -50,6 +50,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from torch_parity import assert_close, assert_exact, n, t  # noqa: E402
+# SCORR_RTOL and SCORR_ATOL (see the module note) and peak_ties live in
+# night_parity, which chip_smoke.py shares on the card
+from night_parity import SCORR_ATOL, SCORR_RTOL, peak_ties  # noqa: E402,F401
 from test_zogy_oracle import zogy_oracle64  # noqa: E402
 from blackbox_tpu.config.defaults import ReductionSettings  # noqa: E402
 from blackbox_tpu.core.geometry import TINY  # noqa: E402
@@ -73,43 +76,10 @@ FR = 1.6
 SHIFT = (3, -2)
 STEP = 32
 TRANS = (0.53, 0.47, 3.0e4)      # x, y as frame fractions; flux [e-]
-SCORR_RTOL = 0.05                # see the module note
-SCORR_ATOL = 3e-3
 VS_ATOL = 2e-2                   # of max Fpsferr**2; the same
 # catalog fields sampled at the peak pixel, with the map each comes from
 PEAK_SAMPLES = {"scorr_peak": "Scorr", "flux_psf": "Fpsf",
                 "fluxerr_psf": "Fpsferr", "d_peak": "D"}
-
-
-def peak_ties(got_xy, want_xy, scorr):
-    """Indices of the transients whose peak pixels differ by a near tie.
-
-    ``got_xy`` and ``want_xy`` are (x, y) arrays of the port's and the
-    JAX package's peak pixels, ``scorr`` the JAX package's Scorr map.
-    Two pixels tie where they are neighbours (each coordinate within
-    1 px) and the map's |Scorr| at the port's pixel is within the Scorr
-    tolerance of its value at the JAX pixel.  Raises, naming the
-    pixels, on any other difference and where more than one transient
-    ties."""
-    ties = []
-    for i, (gx, gy, wx, wy) in enumerate(zip(*got_xy, *want_xy)):
-        g, w = (int(gx), int(gy)), (int(wx), int(wy))
-        if g == w:
-            continue
-        a, b = abs(float(scorr[g[1], g[0]])), abs(float(scorr[w[1], w[0]]))
-        near = max(abs(g[0] - w[0]), abs(g[1] - w[1])) <= 1
-        if not (near and abs(a - b) <= SCORR_ATOL + SCORR_RTOL * b):
-            raise AssertionError(
-                f"transient {i}: peak (x, y) = {g} in the port, {w} in the "
-                f"JAX package, |Scorr| there {a:.6g} and {b:.6g}: not a "
-                "near tie of neighbouring pixels")
-        ties.append((i, g, w))
-    if len(ties) > 1:
-        raise AssertionError(
-            f"{len(ties)} transients need the 1-px tie allowance, at most "
-            "one may: " + "; ".join(f"transient {i}: port {g}, JAX {w}"
-                                    for i, g, w in ties))
-    return [i for i, _, _ in ties]
 
 
 def _ctx():
@@ -333,10 +303,27 @@ def test_fused_science_step_recovers_transient(scene):
              f["stats"]["bkg_std"], *ref.values())
     for k in ("valid", "x", "y", "sign"):
         assert_exact(b["trans_cat"][k], tc[k], k)
-    with pytest.raises(NotImplementedError, match="remap_ranges"):
-        tsub.make_science_programs(ctx, device="cpu")[1](
-            f["sub"], f["bkg_std"], f["mask"], f["psf_centre"], f["cat"],
-            f["stats"]["bkg_std"], *ref.values())
+    # without remap_ranges the back half takes the exact gather remap;
+    # on the full coordinate planes of the same integer shift it finds
+    # the same transients (peak pixels but for a near tie, as above)
+    Hf, Wf = f["sub"].shape
+    planes = (np.broadcast_to(np.arange(Hf, dtype=np.float32)[:, None]
+                              + SHIFT[0], (Hf, Wf)).copy(),
+              np.broadcast_to(np.arange(Wf, dtype=np.float32)[None, :]
+                              + SHIFT[1], (Hf, Wf)).copy())
+    g = tsub.make_science_programs(
+        ctx, trans_params=kw["trans_params"], device="cpu")[1](
+        f["sub"], f["bkg_std"], f["mask"], f["psf_centre"], f["cat"],
+        f["stats"]["bkg_std"], *{**ref, "grid": planes}.values())
+    for k in ("valid", "sign"):
+        assert_exact(g["trans_cat"][k], tc[k], k)
+    live = n(tc["valid"])
+    gxy = [n(g["trans_cat"][k])[live] for k in ("x", "y")]
+    wxy = [n(tc[k])[live].copy() for k in ("x", "y")]
+    for i in peak_ties(gxy, wxy, n(b["Scorr"])):
+        wxy[0][i], wxy[1][i] = gxy[0][i], gxy[1][i]
+    assert_exact(gxy[0], wxy[0], "x")
+    assert_exact(gxy[1], wxy[1], "y")
 
 
 def test_measure_scaling_device_matches_jax():
