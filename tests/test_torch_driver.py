@@ -51,6 +51,7 @@ pytest.importorskip("torch")
 import torch  # noqa: E402
 
 import night_parity as NP  # noqa: E402
+import torch_parity  # noqa: E402,F401  (pins torch threads)
 from test_driver import _ctx  # noqa: E402
 from blackbox_tpu.config.defaults import ReductionSettings as JSettings  # noqa: E402
 from blackbox_tpu.core.geometry import TINY as JTINY  # noqa: E402
