@@ -559,3 +559,19 @@ def dilate(m: torch.Tensor, k: int = 3) -> torch.Tensor:
     """Boolean dilation with a k x k structure (outside = False)."""
     x = m.to(torch.float32)[None, None]
     return F.max_pool2d(x, k, stride=1, padding=k // 2)[0, 0] > 0.5
+
+
+def fixpix(img: torch.Tensor, mask_bad: torch.Tensor, k: int = 5,
+           strip_rows: int = 264, iterations: int = 2) -> torch.Tensor:
+    """Interpolate masked pixels from their good neighbours (the co-add's
+    input preparation): masked pixels take the masked k x k median of
+    their good neighbours (:func:`masked_median_filter`); a second pass
+    fills pixels whose whole neighbourhood was bad."""
+    out = img
+    bad = mask_bad
+    for _ in range(iterations):
+        repl = masked_median_filter(out, bad, k, strip_rows)
+        out = torch.where(bad, repl, out)
+        # pixels still at the fallback (all-bad neighbourhood) stay bad
+        bad = bad & (repl == img)
+    return out

@@ -17,12 +17,13 @@ and the subtraction run eagerly there through the port's kernels.  Each
 boundary back to the host (FITS and Rice products, catalogs, header
 statistics) converts with ``.cpu()``.
 
-Not in this port yet, and refused with ``NotImplementedError`` naming
-the missing module when asked for: the U-Net trail segmentation
-(``trailnet_params``, or ``use_unet_sat`` with ``sat_model_path``), the
-real/bogus network (``vetnet_params``), the solar-system matching
-(``sso_elements``, ``mpcorb_file``), the blind astrometric solve
-(``blind_index``) and the batched runner's precomputed device work
+The solar-system matching (``sso_elements``, ``mpcorb_file``) and the
+blind astrometric solve (``blind_index``) are host code, as in the JAX
+package.  Not in this port yet, and refused with
+``NotImplementedError`` naming the missing module when asked for: the
+U-Net trail segmentation (``trailnet_params``, or ``use_unet_sat`` with
+``sat_model_path``), the real/bogus network (``vetnet_params``) and the
+batched runner's precomputed device work
 (``process_file(device_override=...)``).
 """
 
@@ -130,9 +131,6 @@ class Pipeline:
         self.telescope = telescope
         self.device = torch.device(device)
         self.settings = settings or ReductionSettings()
-        if sso_elements or getattr(self.settings, "mpcorb_file", None):
-            raise _not_ported("solar-system object matching",
-                              "sso/match.py and sso/mpcorb.py")
         if trailnet_params is not None or (
                 getattr(self.settings, "use_unet_sat", False)
                 and getattr(self.settings, "sat_model_path", None)):
@@ -140,9 +138,6 @@ class Pipeline:
                               "models/trailnet.py")
         if vetnet_params is not None:
             raise _not_ported("real/bogus scoring", "models/vetnet.py")
-        if blind_index is not None:
-            raise _not_ported("the blind astrometric solve",
-                              "astro/blindsolve.py (and csrc/quadmatch.cpp)")
         self.ctx = ctx or ReduceContext.from_settings(
             self.settings, telescope)
         self.geom = self.ctx.geom
@@ -158,9 +153,22 @@ class Pipeline:
         self.ext_coeff = ext_coeff
         self.subtract_refs = subtract_refs
         self.update_headertables = update_headertables
+        self.sso_elements = sso_elements or []
+        # MPCORB ingestion: a settings path loads the orbit catalog
+        mpcorb = getattr(self.settings, "mpcorb_file", None)
+        if not self.sso_elements and mpcorb:
+            try:
+                from blackbox_tpu_torch.sso.mpcorb import parse_mpcorb
+                self.sso_elements = parse_mpcorb(mpcorb)
+            except OSError:
+                log.warning("mpcorb_file %s unreadable; SSO matching off",
+                            mpcorb)
         # survey field grid {field_id: (ra, dec)} for the RADECOFF
         # pointing check
         self.field_grid = field_grid
+        # optional QuadIndex for the blind-solve fallback when the
+        # seeded solve fails (lost pointing)
+        self.blind_index = blind_index
 
         # crosstalk coefficients: explicit array > settings file > off
         if xtalk_coeffs is not None:
@@ -567,6 +575,18 @@ class Pipeline:
                             cat["flux_iso"][sel],
                             refcat["ra"], refcat["dec"], refcat["mag"],
                             wcs)
+            if not sol.ok and self.blind_index is not None:
+                # lost pointing: blind quad-hash solve
+                from blackbox_tpu_torch.astro.blindsolve import blind_solve
+                sol = blind_solve(cat["x"][sel], cat["y"][sel],
+                                  cat["flux_iso"][sel],
+                                  self.blind_index, sci_np.shape,
+                                  pixscale_hint=pixscale)
+                if sol.ok:
+                    h["A-BLIND"] = (True,
+                                    "WCS from blind quad-hash solve")
+                    refcat = self.ref_catalog(sol.wcs.crval1,
+                                              sol.wcs.crval2, radius)
             if sol.ok:
                 wcs = sol.wcs
                 h["A-P"] = True
@@ -917,8 +937,18 @@ class Pipeline:
             "ELONG_ZOGY": tc["elong"][sel].astype(np.float32),
             "NPIX_ZOGY": tc["npix"][sel].astype(np.int32),
         }
-        # (the real/bogus network and the SSO cross-match are refused in
-        # __init__ until models/vetnet.py and sso/ are ported)
+        # (the real/bogus network is refused in __init__ until
+        # models/vetnet.py is ported)
+
+        # known-asteroid cross-match
+        if self.sso_elements:
+            from blackbox_tpu_torch.sso.match import annotate_transients
+            tcols = annotate_transients(tcols, float(h["MJD-OBS"]),
+                                        self.sso_elements,
+                                        site=self.site)
+            h["SSO-P"] = (True, "transients matched to known SSOs?")
+            h["N-SSO"] = (int(np.sum(tcols["SSO_DESIG"] != "")),
+                          "number of SSO matches")
         write_catalog(tcat_p, tcols, h, "trans")
         products.append(tcat_p)
 

@@ -69,16 +69,43 @@ Phases, each printing its own lines:
    One line a frame: wall, device (the synchronised calibration +
    extraction and subtraction spans) and host ms; peak memory and the
    phase's seconds.
-8. One JSON line with the kernels' counts and times, then the last
-   line ``{"ok": true, "device": {...}}``.
+8. The reference co-add, in phase 7's tree and night
+   (``coadd_phase``): a third visit of field 42 (new noise and cosmics,
+   dithered COADD_DITHER px and rotated COADD_ROT deg) through
+   ``process_file(..., trans_extract=False)``; then the command line,
+   ``main(["--buildref", "42", ...])``, over the three visits at full
+   width (the blocked combiner: 3 x 1.338e9 B is over its 4e9-byte
+   switch).  Against the adopted single frame it must print
+   ``not_deeper`` and return 0: the reference states the co-add's
+   LIMMAG for an exposure of 1 s, the frame's for its 60 s (a fault the
+   port matches, ROADMAP Queue 3); the co-add must be 0.1 mag deeper
+   once that is counted.  Then ``build_reference`` with
+   BuildRefSettings(nimages_min=3, limmag_target=30, seeing_max=10),
+   the pipeline's context for the catalog and PSF, and the gate lowered
+   by 2.5 log10(60): it must publish (NIMAGES 3, the single frame under
+   ``ref-old/``, K1 and K4 launched by its catalog and PSF), with a
+   median background STD below every input's and visit 2's transients
+   clipped at their cores outside the saturation protection; the loads
+   (``load_ref_input``) and the combiner (``instrument=True``: prep,
+   upload, compute and drain) are timed.  Then the resident
+   ``coadd_field`` on the same inputs against the blocked co-add, and
+   the full-res std planes against the mini-mesh std source
+   (``compare_coadds``: tests/test_coadd.py's contract, widened by the
+   float32 rounding of full-width coordinates), and a fourth visit with
+   NTRANS new transients subtracted against the co-add: at least 16
+   found, Z-FRATIO within 5% of 1.25.
+9. One JSON line with the kernels' counts and times (K4's with the
+   time of the same gathers by advanced indexing, ``library_ms``), then
+   the last line ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before each of phases 3, 4, 5 and
-7's full night and read just after it: every kernel of a phase's path
+The launch counters are zeroed just before each of phases 3, 4, 5, 7's
+full night and 8 and read just after it: every kernel of a phase's path
 must have moved, K1 must show 1 launch per catalog frame and 2 per
 science frame (its 48 transient steps are one launch), K6 6 per science
 frame, K7 3 per frame it calibrates (it counts iterations, four CUDA
 launches each) and K2 none in phase 5; the night must show K1 3 times
-(two catalogs, one subtraction) and K6 6 times.  Any failure raises:
+(two catalogs, one subtraction) and K6 6 times, phase 8 K6 6 times
+(one subtraction).  Any failure raises:
 the script then exits non-zero and prints no ok line.
 It needs a CUDA device and the repository's port package, and the
 ``tests/night_parity.py`` helper beside it.
@@ -86,6 +113,7 @@ It needs a CUDA device and the repository's port package, and the
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -330,8 +358,8 @@ def check_kernels(card):
         else "bytes"))
 
     # K4: the catalog's small and big window gathers, n_active < N
-    ms = plain = err = nbytes = 0.0
-    call_bounds = []
+    ms = plain = err = nbytes = lib = 0.0
+    call_bounds, call_library = [], []
     for N, size in ((20000, 32), (1024, 96)):
         y0 = torch.randint(-20, H + 20, (N,), generator=gen, device="cuda",
                            dtype=torch.int32)
@@ -346,6 +374,16 @@ def check_kernels(card):
             (img, seg), y0, x0, size, n_active=nact))
         tpl = cuda_ms(lambda: windows._gather_plain((img, seg), y0, x0,
                                                     size, nact))
+        # the library's form of the same gathers: advanced indexing of
+        # each frame on precomputed, clamped (N, S, S) index grids
+        # (every slot, in-frame only: no fill, no n_active)
+        ar = torch.arange(size, device="cuda")
+        iy = (y0[:, None, None] + ar[None, :, None]).clamp(0, H - 1)
+        ix = (x0[:, None, None] + ar[None, None, :]).clamp(0, W - 1)
+        tlib = cuda_ms(lambda: (img[iy, ix], seg[iy, ix]))
+        del iy, ix
+        lib += tlib
+        call_library.append(tlib)
         ms, plain = ms + tk, plain + tpl
         # 8 B a window pixel (f32 + int32): read for the live slots,
         # written for every slot
@@ -355,13 +393,15 @@ def check_kernels(card):
         call_bounds.append(cb[0])
         print(f"K4 gather_slot_windows {N}x{size}^2 (f32 + int32, "
               f"n_active {int(nact)}): bit-exact, kernel {tk:.3f} ms, "
-              f"plain {tpl:.3f} ms, bound {cb[0]:.4f} ms ({cb[1]}; "
+              f"plain {tpl:.3f} ms, library (frame[iy, ix] of both frames) "
+              f"{tlib:.3f} ms, bound {cb[0]:.4f} ms ({cb[1]}; "
               f"{cb[0] / tk:.0%} of the kernel's time) [{card}]")
     results.append(dict(entry("gather_slot_windows",
                               "blackbox_tpu_torch/csrc/gather.cu",
                               "blackbox_tpu/pallas/gather.py:61", err, ms,
-                              plain, *bound(nbytes)),
-                        call_bound_ms=call_bounds))
+                              plain, *bound(nbytes), library_ms=lib),
+                        call_bound_ms=call_bounds,
+                        call_library_ms=call_library))
     results.append(check_fft(card))
     results.append(check_detect(card, img))
     return results
@@ -1183,7 +1223,7 @@ def tiny_night_phase(card):
           f"its place [{card}]")
 
 
-def night_phase(ctx, card):
+def night_phase(ctx, card, root):
     """Phase 7, second part: a full MeerLICHT night, file to file, through
     the port's Pipeline on the card.  3 bias, 3 flat and 2 object frames
     of field 42 (10600 x 10816 uint16 raw, made on the card by
@@ -1200,8 +1240,10 @@ def night_phase(ctx, card):
     (elongation ~1e3, ``ops/detection.moments_shape`` floors B² at
     1e-6 as the JAX package does), which sends S-ELOSTD to ~32 (phase
     3 prints it) and the frame to QC red, so no reference would be
-    adopted (ROADMAP Queue 3).  Returns the launch counts of the
-    night."""
+    adopted (ROADMAP Queue 3).  The night's tree is under ``root``.
+    Returns the launch counts of the night and what phase 8 continues
+    from: the pipeline, the frames' results, the first visit's stars and
+    WCS, and the raw-frame writer."""
     import tempfile
     from blackbox_tpu_torch.astro.time import iso2mjd, mjd2iso
     from blackbox_tpu_torch.astro.wcs import TanWCS
@@ -1221,116 +1263,115 @@ def night_phase(ctx, card):
                           subtract_mbias=True, make_quicklooks=False)
     pixscale, ra0, dec0 = s.pixscale, 150.0, -30.0
     t_phase = time.time()
-    with tempfile.TemporaryDirectory() as root:
-        tree = DataTree(root, "ML1")
-        rawdir = tree.raw_dir(NIGHT_DATE)
-        mjd0 = iso2mjd(f"{NIGHT_DATE[:4]}-{NIGHT_DATE[4:6]}-"
-                       f"{NIGHT_DATE[6:]}T23:00:00.000")
-        files = []
+    tree = DataTree(root, "ML1")
+    rawdir = tree.raw_dir(NIGHT_DATE)
+    mjd0 = iso2mjd(f"{NIGHT_DATE[:4]}-{NIGHT_DATE[4:6]}-"
+                   f"{NIGHT_DATE[6:]}T23:00:00.000")
+    files = []
 
-        def write(stacks, imgtype, k, exptime, ra, dec):
-            mjd = mjd0 + k * 120.0 / 86400.0
-            ts = mjd2iso(mjd).replace("-", "").replace(":", "")
-            path = os.path.join(rawdir, f"ML1_{ts[:8]}_{ts[9:15]}.fits")
-            write_raw(path, geom, stacks, imgtype, mjd, exptime, ra, dec)
-            files.append(path)
+    def write(stacks, imgtype, k, exptime, ra, dec):
+        mjd = mjd0 + k * 120.0 / 86400.0
+        ts = mjd2iso(mjd).replace("-", "").replace(":", "")
+        path = os.path.join(rawdir, f"ML1_{ts[:8]}_{ts[9:15]}.fits")
+        write_raw(path, geom, stacks, imgtype, mjd, exptime, ra, dec)
+        files.append(path)
+        return path
 
-        t0 = time.time()
-        for k in range(6):
-            gen = torch.Generator(device="cuda").manual_seed(700 + k)
-            flat = k >= 3
-            stacks = make_science_device(gen, geom, nstars=0,
-                                         sky_e=2e4 if flat else 0.0,
-                                         ncosmics=0, trail=False,
-                                         nsat=0)[:3]
-            write(stacks, "flat" if flat else "bias", k,
-                  3.0 if flat else 0.0, ra0 + (k - 3) * 15.0 / 3600, dec0)
-        gen = torch.Generator(device="cuda").manual_seed(SEEDS[0])
-        *stacks, truth = make_science_device(gen, geom, nstars=4000,
-                                             ncosmics=800, trail=False,
-                                             nsat=20)
-        write(stacks, "object", 6, 60.0, ra0, dec0)
-        # the second visit: the same stars moved and dimmed, 20 new
-        # point sources; its pointing follows the move
-        dx, dy = NIGHT_SHIFT
-        rng = np.random.default_rng(7)
-        edge = min(300, H // 6)
-        tx = np.floor(rng.uniform(edge, W - edge, NTRANS))
-        ty = np.floor(rng.uniform(edge, H - edge, NTRANS))
-        stars2 = (torch.cat([truth["x"] + dx, torch.as_tensor(
-                      tx, dtype=torch.float32, device="cuda")]),
-                  torch.cat([truth["y"] + dy, torch.as_tensor(
-                      ty, dtype=torch.float32, device="cuda")]),
-                  torch.cat([truth["flux"] * NIGHT_SCALE, torch.full(
-                      (NTRANS,), 3.0e4, device="cuda")]))
-        gen = torch.Generator(device="cuda").manual_seed(SEEDS[1])
-        stacks = make_science_device(gen, geom, ncosmics=800, trail=False,
-                                     stars=stars2)[:3]
-        wcs1 = TanWCS.simple(ra0, dec0, pixscale, (H, W))
-        ra2, dec2 = wcs1.pix2sky(W / 2 - dx, H / 2 - dy)
-        write(stacks, "object", 7, 60.0, float(ra2), float(dec2))
-        del stacks, stars2
-        torch.cuda.synchronize()
-        write_s = time.time() - t0
-        nbytes = sum(os.path.getsize(f) for f in files)
+    t0 = time.time()
+    for k in range(6):
+        gen = torch.Generator(device="cuda").manual_seed(700 + k)
+        flat = k >= 3
+        stacks = make_science_device(gen, geom, nstars=0,
+                                     sky_e=2e4 if flat else 0.0,
+                                     ncosmics=0, trail=False,
+                                     nsat=0)[:3]
+        write(stacks, "flat" if flat else "bias", k,
+              3.0 if flat else 0.0, ra0 + (k - 3) * 15.0 / 3600, dec0)
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[0])
+    *stacks, truth = make_science_device(gen, geom, nstars=4000,
+                                         ncosmics=800, trail=False,
+                                         nsat=20)
+    write(stacks, "object", 6, 60.0, ra0, dec0)
+    # the second visit: the same stars moved and dimmed, 20 new
+    # point sources; its pointing follows the move
+    dx, dy = NIGHT_SHIFT
+    rng = np.random.default_rng(7)
+    edge = min(300, H // 6)
+    tx = np.floor(rng.uniform(edge, W - edge, NTRANS))
+    ty = np.floor(rng.uniform(edge, H - edge, NTRANS))
+    stars2 = (torch.cat([truth["x"] + dx, torch.as_tensor(
+                  tx, dtype=torch.float32, device="cuda")]),
+              torch.cat([truth["y"] + dy, torch.as_tensor(
+                  ty, dtype=torch.float32, device="cuda")]),
+              torch.cat([truth["flux"] * NIGHT_SCALE, torch.full(
+                  (NTRANS,), 3.0e4, device="cuda")]))
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[1])
+    stacks = make_science_device(gen, geom, ncosmics=800, trail=False,
+                                 stars=stars2)[:3]
+    wcs1 = TanWCS.simple(ra0, dec0, pixscale, (H, W))
+    ra2, dec2 = wcs1.pix2sky(W / 2 - dx, H / 2 - dy)
+    write(stacks, "object", 7, 60.0, float(ra2), float(dec2))
+    del stacks, stars2
+    torch.cuda.synchronize()
+    write_s = time.time() - t0
+    nbytes = sum(os.path.getsize(f) for f in files)
 
-        # calibration stars: the first visit's unsaturated sources
-        xs, ys, fl = (truth[k].cpu().numpy().astype(np.float64)
-                      for k in ("x", "y", "flux"))
-        keep = fl < 1e6
-        ra, dec = wcs1.pix2sky(np.floor(xs[keep]), np.floor(ys[keep]))
-        mag = 25.0 - 2.5 * np.log10(fl[keep] / 60.0)
-        del truth
+    # calibration stars: the first visit's unsaturated sources
+    xs, ys, fl = (truth[k].cpu().numpy().astype(np.float64)
+                  for k in ("x", "y", "flux"))
+    keep = fl < 1e6
+    ra, dec = wcs1.pix2sky(np.floor(xs[keep]), np.floor(ys[keep]))
+    mag = 25.0 - 2.5 * np.log10(fl[keep] / 60.0)
 
-        def query(ra_c, dec_c, radius):
-            return {"ra": ra, "dec": dec, "mag": mag}
+    def query(ra_c, dec_c, radius):
+        return {"ra": ra, "dec": dec, "mag": mag}
 
-        pipe = driver.Pipeline(tree, "ML1", s,
-                               dataclasses.replace(ctx, subtract_mbias=True),
-                               ref_catalog=query)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        res = []
-        for f in files:
-            res.append(pipe.process_file(f))
-            r = res[-1]
-            t = r.timing
-            if r.header is not None and "S-P" in r.header:
-                h = r.header
-                print(f"  {os.path.basename(f)}: " + ", ".join(
-                    f"{k} {h.get(k)}" for k in (
-                        "QC-FLAG", "MBIAS-P", "MFLAT-P", "S-P", "NOBJECTS",
-                        "A-P", "A-RMS", "PC-P", "PC-ZP", "REF-NEW",
-                        "TRANS-P", "T-NTRANS", "Z-FRATIO", "TQC-FLAG"))
-                      + ", red keys " + str([h[k] for k in h.keys()
-                                             if k.startswith("QCRED")]))
-            ms = {k: v * 1e3 for k, v in t.items()}
-            dev_ms = (ms.get(driver.SPAN_CALIB, 0.0)
-                      + ms.get(driver.SPAN_SUBTRACT, 0.0))
-            host_ms = ms["wall"] - dev_ms
-            parts = (driver.SPAN_MASTERS, driver.SPAN_READ, driver.SPAN_RICE,
-                     driver.SPAN_REF, driver.SPAN_COMPONENTS)
-            other = host_ms - sum(ms.get(k, 0.0) for k in parts)
-            kind = str(r.header["IMAGETYP"]).strip() if r.header else "?"
-            print(f"file -> file {os.path.basename(f)} ({kind}): "
-                  f"{r.status}, wall {ms['wall']:.1f} ms, device "
-                  f"{dev_ms:.1f} ms (calibrate+extract "
-                  f"{ms.get(driver.SPAN_CALIB, 0.0):.1f}, run_subtraction "
-                  f"{ms.get(driver.SPAN_SUBTRACT, 0.0):.1f}), host "
-                  f"{host_ms:.1f} ms (" + ", ".join(
-                      f"{k} {ms.get(k, 0.0):.1f}" for k in parts)
-                  + f", other {other:.1f}) [{card}]")
-        torch.cuda.synchronize()
-        counts = read_counts("file -> file night", card,
-                             ("label_propagate", "median_filter",
-                              "gather_slot_windows", "fft_cols_split"))
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        check_night_flags(res, card)
-        trans = [p for p in res[-1].products
-                 if p.endswith("_red_trans.fits")][0]
-        cols = next(d for d, _ in read_fits(trans) if isinstance(d, dict))
-        found = check_night_transients(cols, tx, ty, card)
+    pipe = driver.Pipeline(tree, "ML1", s,
+                           dataclasses.replace(ctx, subtract_mbias=True),
+                           ref_catalog=query)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    res = []
+    for f in files:
+        res.append(pipe.process_file(f))
+        r = res[-1]
+        t = r.timing
+        if r.header is not None and "S-P" in r.header:
+            h = r.header
+            print(f"  {os.path.basename(f)}: " + ", ".join(
+                f"{k} {h.get(k)}" for k in (
+                    "QC-FLAG", "MBIAS-P", "MFLAT-P", "S-P", "NOBJECTS",
+                    "A-P", "A-RMS", "PC-P", "PC-ZP", "REF-NEW",
+                    "TRANS-P", "T-NTRANS", "Z-FRATIO", "TQC-FLAG"))
+                  + ", red keys " + str([h[k] for k in h.keys()
+                                         if k.startswith("QCRED")]))
+        ms = {k: v * 1e3 for k, v in t.items()}
+        dev_ms = (ms.get(driver.SPAN_CALIB, 0.0)
+                  + ms.get(driver.SPAN_SUBTRACT, 0.0))
+        host_ms = ms["wall"] - dev_ms
+        parts = (driver.SPAN_MASTERS, driver.SPAN_READ, driver.SPAN_RICE,
+                 driver.SPAN_REF, driver.SPAN_COMPONENTS)
+        other = host_ms - sum(ms.get(k, 0.0) for k in parts)
+        kind = str(r.header["IMAGETYP"]).strip() if r.header else "?"
+        print(f"file -> file {os.path.basename(f)} ({kind}): "
+              f"{r.status}, wall {ms['wall']:.1f} ms, device "
+              f"{dev_ms:.1f} ms (calibrate+extract "
+              f"{ms.get(driver.SPAN_CALIB, 0.0):.1f}, run_subtraction "
+              f"{ms.get(driver.SPAN_SUBTRACT, 0.0):.1f}), host "
+              f"{host_ms:.1f} ms (" + ", ".join(
+                  f"{k} {ms.get(k, 0.0):.1f}" for k in parts)
+              + f", other {other:.1f}) [{card}]")
+    torch.cuda.synchronize()
+    counts = read_counts("file -> file night", card,
+                         ("label_propagate", "median_filter",
+                          "gather_slot_windows", "fft_cols_split"))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_night_flags(res, card)
+    trans = [p for p in res[-1].products
+             if p.endswith("_red_trans.fits")][0]
+    cols = next(d for d, _ in read_fits(trans) if isinstance(d, dict))
+    found = check_night_transients(cols, tx, ty, card)
     # one K1 launch a catalog (two object frames) and one for the
     # subtraction's transients; six K6 launches for the one subtraction
     if counts["label_propagate"] != 2 + 1:
@@ -1343,7 +1384,9 @@ def night_phase(ctx, card):
           f" GiB of raw files, written in {write_s:.1f} s), {found} of "
           f"{NTRANS} transients recovered, peak memory {peak_gib:.2f} GiB, "
           f"phase {time.time() - t_phase:.1f} s [{card}]")
-    return counts
+    return counts, dict(root=root, tree=tree, pipe=pipe, settings=s,
+                        res=res, truth=truth, wcs1=wcs1, write=write,
+                        trans=(tx, ty))
 
 
 def check_night_flags(res, card):
@@ -1394,10 +1437,370 @@ def check_night_transients(cols, tx, ty, card):
     return found
 
 
+# ---------------------------------------------------------------- phase 8
+
+COADD_DITHER = (-4, 3)  # (dx, dy) px of the third visit's pointing
+COADD_ROT = 0.05        # deg, the third visit's rotation
+FOURTH_SHIFT = (2, -3)  # (dx, dy) px of the fourth visit's pointing
+EXPTIME = 60.0          # s, every visit's exposure
+
+
+def visit_stars(truth, dx, dy, rot_deg, scale, geom):
+    """The first visit's stars as a later visit sees them: rotated by
+    ``rot_deg`` about the frame centre, moved (dx, dy) px, at ``scale``
+    of its transparency; and that visit's pointing (the sky at its
+    centre pixel, through the first visit's WCS ``wcs1``) as a function
+    of wcs1."""
+    H, W = geom.red_shape
+    cx, cy = W / 2, H / 2
+    c, s = math.cos(math.radians(rot_deg)), math.sin(math.radians(rot_deg))
+    x, y = truth["x"] - cx, truth["y"] - cy
+    stars = (cx + c * x - s * y + dx, cy + s * x + c * y + dy,
+             truth["flux"] * scale)
+
+    def pointing(wcs1):
+        # the centre shows the first visit's pixel c - R^-1 d
+        ra, dec = wcs1.pix2sky(cx - (c * dx + s * dy), cy - (-s * dx + c * dy))
+        return float(ra), float(dec)
+    return stars, pointing
+
+
+def check_visit(r, label, card, keys=("S-P", "A-P", "PC-P")):
+    if r.status != "reduced":
+        raise AssertionError(f"{label}: {r.status} {r.error}")
+    h = r.header
+    for k in keys:
+        if h.get(k) is not True:
+            raise AssertionError(f"{label}: {k} = {h.get(k)}")
+    if r.qc_flag == "red":
+        raise AssertionError(f"{label}: QC red")
+    ms = r.timing["wall"] * 1e3
+    print(f"{label}: {r.status}, QC {r.qc_flag}, " + ", ".join(
+        f"{k} {h.get(k)}" for k in ("NOBJECTS", "A-RMS", "PC-ZP", "LIMMAG",
+                                    "S-SEEING"))
+          + f", wall {ms:.1f} ms [{card}]")
+
+
+def compare_coadds(got, want, label, card):
+    """Two co-adds of the same inputs (numpy dicts).  Their remaps may
+    differ by float32 rounding: the resident co-add casts source
+    coordinates of up to 1e4 px to float32 (~1e-3 px, as the JAX package
+    does), the blocked one slab-local ones.  So a clip decision at its
+    threshold may flip, and a nearest-sampled mask or std pixel at a
+    half-pixel tie, or an input at the frame's edge, may take its
+    neighbour.  Held: the pixels where the clip decisions, the weight
+    sums (within 1e-5), the masks or the images differ (the images
+    beyond 0.05 e- plus 4e-3 px times the local gradient, twice that
+    coordinate rounding in x and y) are under 1e-3 of the frame, as
+    tests/test_coadd.py allows for clip flips.  The worst pixels are
+    printed."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+    gi, wi = t(got["image"]), t(want["image"])
+    flip = (t(got["nclipped"]).to(torch.int32)
+            != t(want["nclipped"]).to(torch.int32))
+    weight = ~flip & ((t(got["wsum"]) - t(want["wsum"])).abs() > 1e-5)
+    maskd = t(got["mask"]) != t(want["mask"])
+    d = (gi - wi).abs()
+    g = torch.zeros_like(wi)
+    for diff, a, b in (((wi[:, 1:] - wi[:, :-1]).abs(), (slice(None),
+                        slice(1, None)), (slice(None), slice(None, -1))),
+                       ((wi[1:] - wi[:-1]).abs(), (slice(1, None),),
+                        (slice(None, -1),))):
+        g[a] = torch.maximum(g[a], diff)
+        g[b] = torch.maximum(g[b], diff)
+    tol = 0.05 + 4e-3 * g
+    agree = ~(flip | weight | maskd)
+    over = agree & (d > tol)
+    bad = ~agree | over
+    n = d.numel()
+    dflat = d[agree & (g < 10.0)]
+    print(f"{label}: {int(flip.sum())} clip flips, {int(weight.sum())} other "
+          f"weight changes, {int(maskd.sum())} mask pixels, {int(over.sum())} "
+          f"image pixels over 0.05 e- + 4e-3 px x gradient: "
+          f"{int(bad.sum())} pixels ({float(bad.sum()) / n:.2e} of the "
+          f"frame); elsewhere max |d image| {float(d[~bad].max()):.4g} e- "
+          f"({float(dflat.max()) if dflat.numel() else 0.0:.4g} where the "
+          f"gradient is under 10 e-/px); bit-identical "
+          f"{bool(torch.equal(gi, wi))} [{card}]")
+    worst = torch.topk(torch.where(bad, d / tol, 0.0).reshape(-1),
+                       min(3, max(int(bad.sum()), 1))).indices
+    for k in worst.tolist():
+        y, x = divmod(k, gi.shape[1])
+        if not bool(bad[y, x]):
+            continue
+        print(f"  ({y}, {x}): image {float(gi[y, x]):.4f} / "
+              f"{float(wi[y, x]):.4f}, wsum {float(got['wsum'][y, x]):.6g} "
+              f"/ {float(want['wsum'][y, x]):.6g}, nclipped "
+              f"{int(got['nclipped'][y, x])} / {int(want['nclipped'][y, x])},"
+              f" mask {int(got['mask'][y, x])} / {int(want['mask'][y, x])},"
+              f" gradient {float(g[y, x]):.4g} [{card}]")
+    if float(bad.sum()) / n >= 1e-3:
+        raise AssertionError(f"{label}: co-adds differ")
+
+
+def coadd_phase(card, night):
+    """Phase 8, in phase 7's tree and night: a third visit, the command
+    line's --buildref over the three visits (not_deeper against the
+    single frame), the reference co-add published (the blocked
+    combiner, K1 and K4 in its catalog and PSF), the resident combiner
+    and the full-res std source held against it, and a fourth visit
+    subtracted against the co-add.  Returns the launch counts of the
+    phase."""
+    import contextlib
+    import io
+    import logging
+    from blackbox_tpu_torch.__main__ import main as cli_main
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    from blackbox_tpu_torch.io.fits import read_fits
+    from blackbox_tpu_torch.io.rice import read_rice
+    from blackbox_tpu_torch.ops.coadd import saturation_protect
+    from blackbox_tpu_torch.ops.stats import median
+    from blackbox_tpu_torch.pipeline import buildref as B
+    from blackbox_tpu_torch.synth.device import make_science_device
+
+    t_phase = time.time()
+    pipe, tree, truth = night["pipe"], night["tree"], night["truth"]
+    geom, ctx = pipe.geom, pipe.ctx
+    H, W = geom.red_shape
+    res7 = night["res"]
+    zero_counts()
+
+    # 1. a third visit: new noise and cosmics, dithered and rotated
+    stars3, pointing3 = visit_stars(truth, *COADD_DITHER, COADD_ROT, 1.0,
+                                    geom)
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[2])
+    stacks = make_science_device(gen, geom, ncosmics=800, trail=False,
+                                 stars=stars3)[:3]
+    p3 = night["write"](stacks, "object", 8, EXPTIME,
+                        *pointing3(night["wcs1"]))
+    del stacks, stars3
+    r3 = pipe.process_file(p3, trans_extract=False)
+    check_visit(r3, "third visit (trans_extract=False)", card)
+
+    # 2a. the command line over the three visits, against the adopted
+    # single-frame reference, with the default gate: not_deeper, a fault
+    # of the reference that the port matches (build_reference states
+    # the co-add's LIMMAG for 1 s, a frame's counts its EXPTIME)
+    old = float(res7[6].header["LIMMAG"])
+    fault = 2.5 * math.log10(EXPTIME)
+    seen = []
+    build0 = B.build_reference
+
+    def build(*a, **kw):
+        seen.append(build0(*a, **kw))
+        return seen[-1]
+
+    B.build_reference = build
+    buf = io.StringIO()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["--buildref", "42", "--data_root", night["root"],
+                           "--filters", "q"])
+    finally:
+        B.build_reference = build0
+    t_cli = time.time() - t0
+    logging.getLogger().setLevel(logging.WARNING)
+    said = buf.getvalue().strip()
+    print(f"python -m blackbox_tpu_torch --buildref 42: rc {rc}, {said!r}, "
+          f"{t_cli:.1f} s [{card}]")
+    if rc != 0 or "not_deeper" not in said:
+        raise AssertionError(f"--buildref: rc {rc}, {said!r}")
+    limmag = seen[0][1]["limmag"]
+    if limmag + fault < old + 0.1:
+        raise AssertionError(f"co-add LIMMAG {limmag} + {fault:.3f} not 0.1 "
+                             f"mag above the single frame's {old}")
+    print(f"co-add against the adopted single-frame reference: not_deeper "
+          f"(LIMMAG {limmag:.4f} for 1 s against the frame's {old:.4f} for "
+          f"{EXPTIME:.0f} s; {limmag + fault:.4f} for {EXPTIME:.0f} s, "
+          f"{limmag + fault - old:.3f} mag deeper) [{card}]")
+
+    bs = B.BuildRefSettings(nimages_min=3, limmag_target=30.0,
+                            seeing_max=10.0)
+    # 2b. the gate lowered by the fault's 2.5 log10(EXPTIME): published,
+    # the single frame archived; the loads and the blocked combiner
+    # timed (instrument=True), their outputs kept
+    kept = {"inputs": [], "load_s": []}
+    load0, blocked0 = B.load_ref_input, B.coadd_field_blocked
+
+    def load(path, *a, **kw):
+        t = time.perf_counter()
+        inp = load0(path, *a, **kw)
+        torch.cuda.synchronize()
+        kept["load_s"].append(time.perf_counter() - t)
+        kept["inputs"].append(inp)
+        return inp
+
+    def blocked(inputs, out_wcs, shape, s, **kw):
+        t = time.perf_counter()
+        out = blocked0(inputs, out_wcs, shape, s, instrument=True, **kw)
+        kept.update(blocked=out, wcs=out_wcs, shape=shape, settings=s,
+                    blocked_s=time.perf_counter() - t)
+        return out
+
+    before = {k: c.launches for k, c in counters().items()}
+    B.load_ref_input, B.coadd_field_blocked = load, blocked
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        status, info = B.build_reference(tree, "ML1", 42, "q", bs,
+                                         extract_ctx=ctx,
+                                         dlimmag_min=0.1 - fault)
+    finally:
+        B.load_ref_input, B.coadd_field_blocked = load0, blocked0
+    t_build = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = {k: c.launches - before[k] for k, c in counters().items()}
+    if status != "published":
+        raise AssertionError(f"co-add: {status} {info}")
+    _, h = read_rice(info["path"])
+    if int(h["NIMAGES"]) != 3:
+        raise AssertionError(f"co-add NIMAGES {h['NIMAGES']}")
+    rdir = tree.ref_dir(42)
+    arch = os.listdir(os.path.join(rdir, "ref-old"))
+    if not any(f.endswith("_red.fits.fz") and "coadd" not in f
+               for f in arch):
+        raise AssertionError(f"the single frame is not under ref-old/: "
+                             f"{arch}")
+    for k in ("label_propagate", "gather_slot_windows"):
+        if moved[k] <= 0:
+            raise AssertionError(f"{k} did not move in build_reference")
+    tim = kept["timings"] = kept["blocked"]["timings"]
+    print(f"co-add published: NIMAGES {h['NIMAGES']}, LIMMAG {h['LIMMAG']}, "
+          f"NOBJECTS {h['NOBJECTS']}, S-SEEING {h['S-SEEING']}, R-ASWARP "
+          f"{h['R-ASWARP']}, R-NSIGMA {h['R-NSIGMA']}, QC {info['qc']}; the "
+          f"single frame under ref-old/; launches in build_reference "
+          f"{ {k: v for k, v in moved.items() if v} } [{card}]")
+    print(f"co-add timing: build_reference {t_build:.1f} s; load_ref_input "
+          + ", ".join(f"{t:.2f}" for t in kept["load_s"])
+          + f" s; coadd_field_blocked {kept['blocked_s']:.2f} s (prep "
+          f"{tim['prep_s']:.2f}, upload {tim['upload_s']:.2f}, compute "
+          f"{tim['compute_s']:.2f}, drain {tim['drain_s']:.2f} s, "
+          f"{tim['nblocks']} blocks, instrument=True); extraction and "
+          f"products {t_build - sum(kept['load_s']) - kept['blocked_s']:.1f}"
+          f" s; peak memory {peak:.2f} GiB [{card}]")
+
+    out, inputs = kept["blocked"], kept["inputs"]
+    med_co = float(median(torch.as_tensor(out["bkg_std"], device="cuda")))
+    med_in = [float(median(inp.bkg_std)) for inp in inputs]
+    if not med_co < min(med_in):
+        raise AssertionError(f"co-add bkg_std {med_co} not below the "
+                             f"inputs' {med_in}")
+    # visit 2's transients: clipped at their cores, outside the
+    # saturation protection
+    tx, ty = night["trans"]
+    w2 = TanWCS.from_header(res7[7].header)
+    cx, cy = kept["wcs"].sky2pix(*w2.pix2sky(tx, ty))
+    ix, iy = np.round(cx).astype(int), np.round(cy).astype(int)
+    radius = int(np.ceil(bs.clip.protect_radius_fwhm
+                         * max(inp.fwhm_pix for inp in inputs)))
+    prot = saturation_protect(torch.as_tensor(out["mask"], device="cuda")[
+        None], radius + 2).cpu().numpy()
+    outside = ~prot[iy, ix]
+    ncore = out["nclipped"][iy, ix]
+    if not (ncore[outside] >= 1).all():
+        raise AssertionError(f"transient cores not clipped: nclipped "
+                             f"{ncore.tolist()}, outside protection "
+                             f"{outside.tolist()}")
+    cat = next(d for d, _ in read_fits(info["path"].replace(
+        "_red.fits.fz", "_red_cat.fits")) if isinstance(d, dict))
+    px = np.asarray(cat["X_POS"], np.float64) - 1
+    py = np.asarray(cat["Y_POS"], np.float64) - 1
+    d = np.hypot(px[None, :] - cx[:, None], py[None, :] - cy[:, None])
+    left = int((d < 2.0).any(1).sum())
+    print(f"co-add: median bkg_std {med_co:.4f} e- against the inputs' "
+          + ", ".join(f"{m:.4f}" for m in med_in)
+          + f"; visit 2's {NTRANS} transients clipped at their cores "
+          f"({int(outside.sum())} outside the saturation protection, "
+          f"nclipped there {sorted(set(ncore[outside].tolist()))}); the "
+          f"co-add's catalog still detects {left} of them within 2 px "
+          f"[{card}]")
+
+    # 3. the resident combiner on the same inputs against the blocked
+    # one, then the full-res std source against the mini-mesh one
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = B.coadd_field(inputs, kept["wcs"], kept["shape"], kept["settings"])
+    res = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+           for k, v in res.items()}
+    t_res = time.time() - t0
+    if res["zp"] != out["zp"]:
+        raise AssertionError(f"resident zp {res['zp']}, blocked {out['zp']}")
+    compare_coadds(res, out, f"resident coadd_field ({t_res:.1f} s) "
+                   "against the blocked co-add", card)
+    del res
+    torch.cuda.empty_cache()
+    full_in = [dataclasses.replace(inp, bkg_std_mini=None) for inp in inputs]
+    t0 = time.time()
+    full = B.coadd_field_blocked(full_in, kept["wcs"], kept["shape"],
+                                 kept["settings"], instrument=True)
+    t_full = time.time() - t0
+    tf = full["timings"]
+    compare_coadds(full, out, f"blocked co-add with the full-res std planes "
+                   f"({t_full:.1f} s: prep {tf['prep_s']:.2f}, upload "
+                   f"{tf['upload_s']:.2f}, compute {tf['compute_s']:.2f}, "
+                   f"drain {tf['drain_s']:.2f}) against the mini-mesh std "
+                   f"source", card)
+    del full, full_in, out, kept, inputs
+    torch.cuda.empty_cache()
+
+    # 4. a fourth visit with NTRANS new transients, subtracted against
+    # the co-add
+    dx, dy = FOURTH_SHIFT
+    rng = np.random.default_rng(8)
+    edge = min(300, H // 6)
+    tx4 = np.floor(rng.uniform(edge, W - edge, NTRANS))
+    ty4 = np.floor(rng.uniform(edge, H - edge, NTRANS))
+    (x4, y4, f4), pointing4 = visit_stars(truth, dx, dy, 0.0, NIGHT_SCALE,
+                                          geom)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                     device="cuda")
+    stars4 = (torch.cat([x4, as_t(tx4)]), torch.cat([y4, as_t(ty4)]),
+              torch.cat([f4, torch.full((NTRANS,), 3.0e4, device="cuda")]))
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[2] + 1)
+    stacks = make_science_device(gen, geom, ncosmics=800, trail=False,
+                                 stars=stars4)[:3]
+    p4 = night["write"](stacks, "object", 9, EXPTIME,
+                        *pointing4(night["wcs1"]))
+    del stacks, stars4
+    ref = pipe._find_ref(42, "q")
+    if not ref.endswith("_coadd_red.fits.fz"):
+        raise AssertionError(f"the driver's reference is {ref}")
+    r4 = pipe.process_file(p4)
+    check_visit(r4, "fourth visit against the co-add", card,
+                keys=("S-P", "A-P", "PC-P", "TRANS-P"))
+    h4 = r4.header
+    fr = float(h4["Z-FRATIO"])
+    if abs(fr * NIGHT_SCALE - 1.0) > 0.05:
+        raise AssertionError(f"Z-FRATIO {fr}, true {1 / NIGHT_SCALE}")
+    trans = [p for p in r4.products if p.endswith("_red_trans.fits")][0]
+    cols = next(d for d, _ in read_fits(trans) if isinstance(d, dict))
+    found = check_night_transients(cols, tx4, ty4, card)
+    t = {k: v * 1e3 for k, v in r4.timing.items()}
+    torch.cuda.synchronize()
+    counts = read_counts("co-add phase", card,
+                         ("label_propagate", "median_filter",
+                          "gather_slot_windows", "fft_cols_split"))
+    if counts["fft_cols_split"] != 6:
+        raise AssertionError(f"fft_cols_split: {counts['fft_cols_split']} "
+                             "launches for 1 subtraction")
+    print(f"fourth visit against the co-add ({os.path.basename(ref)}): "
+          f"T-NTRANS {h4['T-NTRANS']}, {found} of {NTRANS} transients, "
+          f"Z-FRATIO {fr} (true {1 / NIGHT_SCALE}), Z-DXRMS {h4['Z-DXRMS']}, "
+          f"TQC-FLAG {h4.get('TQC-FLAG')}, run_subtraction "
+          f"{t.get('device: run_subtraction', 0.0):.1f} ms; phase "
+          f"{time.time() - t_phase:.1f} s [{card}]")
+    return counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.time()
     # phase 1: device and build
     card = card_label()
     print(card)
@@ -1484,14 +1887,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 7: file -> file through the driver, TINY on the card against
-    # the CPU, then a full night, its launches counted
+    # the CPU, then a full night, its launches counted; phase 8: the
+    # reference co-add in that night's tree, its launches counted
     tiny_night_phase(card)
-    c7 = night_phase(ctx, card)
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        c7, night = night_phase(ctx, card, root)
+        c8 = coadd_phase(card, night)
+        del night
 
     for r in results:
         r["launches"] = (c3[r["name"]] + c4[r["name"]] + c5[r["name"]]
-                         + c7[r["name"]])
+                         + c7[r["name"]] + c8[r["name"]])
         r["file_to_file_launches"] = c7[r["name"]]
+        r["coadd_phase_launches"] = c8[r["name"]]
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all [{card}]")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -284,42 +284,48 @@ ERR_OF = {"E_FLUX_": "E_FLUXERR_", "MAG_": "MAGERR_"}
 
 
 def check_catalogs(a, b):
+    """Every catalog product of ``b`` against ``a``'s
+    (``check_catalog_pair``); returns their row counts."""
+    found = pairs(a, b, "_red_cat.fits")
+    for pb, pa in found:
+        check_catalog_pair(pa, pb)
+    return [len(table(pb)["NUMBER"]) for pb, _ in found]
+
+
+def check_catalog_pair(pa, pb):
     """Same rows; integer columns exact; positions within 1e-3 px;
     fluxes within 1e-4 of themselves plus a tenth of their error;
     magnitudes within a tenth of their error (plus ``clip_edge``'s
     zeropoint allowance), their errors as moved by that;
     signal-to-noise within 0.1; other floats within 1e-3."""
-    found = pairs(a, b, "_red_cat.fits")
-    for pb, pa in found:
-        cb, ca = table(pb), table(pa)
-        # magnitudes carry the zeropoint, which ``clip_edge`` may move
-        from blackbox_tpu_torch.io.fits import read_fits
-        hb, ha = (next(h for d, h in read_fits(p) if isinstance(d, dict))
-                  for p in (pb, pa))
-        dzp = clip_edge(ha, hb)[0]
-        assert list(ca) == list(cb)
-        for k, y in cb.items():
-            x, y = np.asarray(ca[k]), np.asarray(y)
-            assert x.shape == y.shape and x.dtype == y.dtype, k
-            d = np.abs(x.astype(np.float64) - y)
-            if y.dtype.kind != "f":
-                assert np.array_equal(x, y), k
-            elif k in ("X_POS", "Y_POS"):
-                assert np.all(d <= 1e-3), k
-            elif k in ("RA", "DEC"):
-                assert np.all(d <= 1e-3 * PIXSCALE / 3600), k
-            elif k.startswith("MAGERR_"):
-                assert np.all(d <= np.abs(y) * (1e-3 + 0.1 * np.abs(y)
-                                                / 1.0857)), k
-            elif k.startswith(("E_FLUX_", "MAG_", "SNR_")):
-                pre = next((p for p in ERR_OF if k.startswith(p)), None)
-                sig = (np.abs(np.asarray(cb[k.replace(pre, ERR_OF[pre])]))
-                       if pre else 1.0)
-                zp = dzp if k.startswith("MAG_") else 0.0
-                assert np.all(d <= 1e-4 * np.abs(y) + 0.1 * sig + zp), k
-            else:
-                assert np.all(d <= 1e-3 * np.abs(y) + 1e-6), k
-    return [len(table(pb)["NUMBER"]) for pb, _ in found]
+    cb, ca = table(pb), table(pa)
+    # magnitudes carry the zeropoint, which ``clip_edge`` may move
+    from blackbox_tpu_torch.io.fits import read_fits
+    hb, ha = (next(h for d, h in read_fits(p) if isinstance(d, dict))
+              for p in (pb, pa))
+    dzp = clip_edge(ha, hb)[0]
+    assert list(ca) == list(cb)
+    for k, y in cb.items():
+        x, y = np.asarray(ca[k]), np.asarray(y)
+        assert x.shape == y.shape and x.dtype == y.dtype, k
+        d = np.abs(x.astype(np.float64) - y)
+        if y.dtype.kind != "f":
+            assert np.array_equal(x, y), k
+        elif k in ("X_POS", "Y_POS"):
+            assert np.all(d <= 1e-3), k
+        elif k in ("RA", "DEC"):
+            assert np.all(d <= 1e-3 * PIXSCALE / 3600), k
+        elif k.startswith("MAGERR_"):
+            assert np.all(d <= np.abs(y) * (1e-3 + 0.1 * np.abs(y)
+                                            / 1.0857)), k
+        elif k.startswith(("E_FLUX_", "MAG_", "SNR_")):
+            pre = next((p for p in ERR_OF if k.startswith(p)), None)
+            sig = (np.abs(np.asarray(cb[k.replace(pre, ERR_OF[pre])]))
+                   if pre else 1.0)
+            zp = dzp if k.startswith("MAG_") else 0.0
+            assert np.all(d <= 1e-4 * np.abs(y) + 0.1 * sig + zp), k
+        else:
+            assert np.all(d <= 1e-3 * np.abs(y) + 1e-6), k
 
 
 def check_transients(a, b):
@@ -359,3 +365,99 @@ def check_night(a, b, level):
     check_difference_images(a, b)
     check_catalogs(a, b)
     return check_transients(a, b)
+
+
+# -------------------------------------------------------------- co-add
+
+COADD_SETTINGS = dict(nimages_min=3, limmag_target=30.0, seeing_max=10.0)
+
+
+def tiny_visits(root, create_ref: bool):
+    """Three visits of field 42 sharing one star field (seed 11: 3 bias,
+    3 flat, 3 object frames of 40 stars), reduced file to file under
+    ``root`` by the port's Pipeline on the CPU.  With ``create_ref`` the
+    first visit is adopted as the field reference and the other two are
+    subtracted against it.  Returns the FrameResults."""
+    from blackbox_tpu_torch.config.defaults import ReductionSettings
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.pipeline.driver import Pipeline
+    from blackbox_tpu_torch.synth.observation import night_of_observations
+    rng = np.random.default_rng(11)
+    files, truths, tree = night_of_observations(
+        root, TINY, rng, date=DATE, nbias=3, nflat=3, nsci=3, nstars=40,
+        ncosmics=10, trail=False, nsat=0, sky_e=300.0, ra_deg=RA0,
+        dec_deg=DEC0)
+    s = ReductionSettings(geometry=TINY, pixscale=PIXSCALE,
+                          create_ref=create_ref, make_quicklooks=False)
+    pipe = Pipeline(tree, "ML1", s, tiny_ctx(s),
+                    ref_catalog=ref_catalog(truths[-1].stars, TINY.red_shape),
+                    device="cpu")
+    return [pipe.process_file(f) for f in files]
+
+
+# ------------------------------------------- SSO and lost-pointing frames
+
+LOST = (0.5, -0.3)      # deg, the lost visit's pointing error (RA, Dec)
+
+
+def lost_pointing_visit(root, stars):
+    """A third visit of ``tiny_night``'s field at 23:45 whose header
+    points LOST degrees off (the stars where the first visit has them,
+    its night's flat response), written into the raw tree under
+    ``root``; the seeded astrometric solve cannot find it.  Returns its
+    path."""
+    from blackbox_tpu_torch.astro.time import iso2mjd
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.orchestration.paths import DataTree
+    from blackbox_tpu_torch.synth.generator import _vignette_flat
+    from blackbox_tpu_torch.synth.observation import write_observation
+    # the night's flat is tiny_night's first draw from its generator
+    flat = _vignette_flat(TINY, np.random.default_rng(11))
+    path = os.path.join(DataTree(root, "ML1").raw_dir(DATE),
+                        f"ML1_{DATE}_234500.fits")
+    write_observation(path, TINY, np.random.default_rng(5), "object",
+                      mjd_start=iso2mjd("2026-03-01T23:45:00.000"),
+                      nstars=0, ncosmics=4, trail=False, nsat=0,
+                      sky_e=300.0, ra_deg=RA0 + LOST[0],
+                      dec_deg=DEC0 + LOST[1], stars=stars, flat=flat)
+    return path
+
+
+def quad_index(stars, shape):
+    """A blind-solve quad index over the calibration stars of
+    ``ref_catalog``, for quads of 18-108 arcsec (the TINY frame is 75 x
+    180 arcsec)."""
+    from blackbox_tpu_torch.astro.blindsolve import QuadIndex
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    wcs = TanWCS.simple(RA0, DEC0, PIXSCALE, shape)
+    ra, dec = wcs.pix2sky(stars[:, 0], stars[:, 1])
+    mag = ZP_TRUE - 2.5 * np.log10(stars[:, 2] / 60.0)
+    return QuadIndex.build(ra, dec, mag, 0.005, 0.03)
+
+
+def sso_elements_at(ra, dec, mjd, site, designation, delta_au=1.2):
+    """Circular-orbit elements of an asteroid that the port's (and the
+    JAX package's) ephemeris puts at (ra, dec) [deg] from ``site`` at
+    UT ``mjd``, ``delta_au`` from the observer: the heliocentric
+    position at the light-time-corrected epoch fixes the orbit's radius,
+    plane (inclination 40 deg) and argument of latitude."""
+    from blackbox_tpu_torch.sso import match as M
+    mjd_tt = mjd + M.TT_MINUS_UT_DAY
+    p_obs = (M.earth_heliocentric_j2000(mjd_tt)
+             + M.observer_offset_ecliptic(mjd, site))
+    ra, dec = np.radians(ra), np.radians(dec)
+    xq, yq, zq = (np.cos(dec) * np.cos(ra), np.cos(dec) * np.sin(ra),
+                  np.sin(dec))
+    ce, se = np.cos(M.OBLIQUITY), np.sin(M.OBLIQUITY)
+    p = p_obs + delta_au * np.array([xq, ce * yq + se * zq,
+                                     -se * yq + ce * zq])
+    r = float(np.linalg.norm(p))
+    incl = np.radians(40.0)
+    su = p[2] / (r * np.sin(incl))
+    u = np.arctan2(su, np.sqrt(1.0 - su * su))
+    node = np.arctan2(p[1], p[0]) - np.arctan2(r * su * np.cos(incl),
+                                               r * np.cos(u))
+    return M.Elements(designation, a=r, e=0.0, incl=40.0,
+                      node=float(np.degrees(node) % 360.0), argper=0.0,
+                      M0=float(np.degrees(u) % 360.0),
+                      epoch_mjd=mjd_tt - delta_au / M.C_AU_DAY)

@@ -853,3 +853,144 @@ def test_process_file_card_matches_cpu(dev, tmp_path):
     a, _ = read_rice(mask[0])
     b, _ = read_rice(os.path.join(rg, os.path.relpath(mask[0], rc)))
     assert np.array_equal(a, b)
+
+
+# ------------------------------------------------------------- co-add
+
+COADD_HW = 256
+
+
+def _coadd_inputs(mini: bool):
+    """Five dithered, rotated inputs of one field (the port's RefInputs
+    on the CPU): a bright star, a saturated footprint near a block seam
+    with an outlier inside its protection zone, a cosmic, and a
+    background STD that is the Catmull-Rom upsample of a mini mesh
+    (carried along when ``mini``)."""
+    import numpy as np
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    from blackbox_tpu_torch.core import maskbits as mb
+    from blackbox_tpu_torch.ops.background import mini2back
+    from blackbox_tpu_torch.pipeline.buildref import RefInput
+    from blackbox_tpu_torch.synth.generator import star_image
+    H = W = COADD_HW
+    rng = np.random.default_rng(12)
+    out_wcs = TanWCS.simple(150.0, -30.0, 0.5642, (H, W))
+    inputs = []
+    for i in range(5):
+        w = TanWCS.simple(150.0 + 1e-4 * i, -30.0 - 5e-5 * i, 0.5642,
+                          (H, W), rot_deg=0.3 * i)
+        xi, yi = w.sky2pix(*out_wcs.pix2sky(128.0, 128.0))
+        zp = 25.0 - 0.1 * i
+        img = star_image((H, W), [[float(xi), float(yi),
+                                   2e4 / 10 ** (0.04 * i), 3.0]])
+        img = (img + rng.normal(0, 4.0, (H, W))).astype(np.float32)
+        mask = np.zeros((H, W), np.uint8)
+        mask[61:64, 100:103] = mb.SATURATED
+        if i == 1:
+            img[70, 101] += 160.0
+        if i == 2:
+            img[200, 40] += 500.0
+        stdm = (4.0 + 0.5 * rng.random((8, 8))).astype(np.float32)
+        std = mini2back(torch.from_numpy(stdm), (H, W), 32)
+        kw = dict(bkg_std_mini=stdm, bkg_boxsize=32) if mini else {}
+        inputs.append(RefInput(image=torch.from_numpy(img), bkg_std=std,
+                               mask=torch.from_numpy(mask), wcs=w, zp=zp,
+                               fwhm_pix=2.5, **kw))
+    return inputs, out_wcs
+
+
+def _coadd_close(got, want, what, flips=0.0):
+    """Masks equal.  Clip decisions equal and weight sums within 1e-5 of
+    themselves but on at most ``flips`` of the pixels: the card's and
+    the CPU's coordinate planes round differently, so a clip at its
+    threshold may flip, and a nearest-sampled std pixel at a half-pixel
+    tie may take its neighbour.  Elsewhere the background STD within
+    1e-5 of itself and the images within 1e-5 of themselves plus 1e-5
+    of the image's largest value (the remap's card-against-CPU
+    tolerance, test_resamplers_card_matches_cpu: the card's and the
+    CPU's sin round differently)."""
+    import numpy as np
+    g = {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+         for k, v in got.items() if k in ("image", "wsum", "nclipped",
+                                          "mask", "bkg_std")}
+    w = {k: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+         for k, v in want.items() if k in g}
+    np.testing.assert_array_equal(g["mask"], w["mask"], err_msg=what)
+    tie = ((g["nclipped"].astype(np.int32) != w["nclipped"].astype(np.int32))
+           | ~np.isclose(g["wsum"], w["wsum"], rtol=1e-5, atol=0))
+    assert tie.mean() <= flips, (what, int(tie.sum()))
+    same = ~tie
+    np.testing.assert_allclose(g["image"][same], w["image"][same],
+                               rtol=1e-5, atol=1e-5 * np.abs(w["image"]).max(),
+                               err_msg=what)
+    np.testing.assert_allclose(g["bkg_std"][same], w["bkg_std"][same],
+                               rtol=1e-5, err_msg=what + " bkg_std")
+
+
+@pytest.mark.parametrize("remap", ["shift2pass", "gather"])
+def test_coadd_card_matches_cpu(dev, remap):
+    """The resident co-add on the card against the CPU."""
+    from blackbox_tpu_torch.pipeline.buildref import coadd_field
+    inputs, wcs = _coadd_inputs(False)
+    shape = (COADD_HW, COADD_HW)
+    gpu = coadd_field(inputs, wcs, shape, remap=remap)
+    assert gpu["image"].device.type == "cuda"
+    cpu = coadd_field(inputs, wcs, shape, remap=remap, device="cpu")
+    _coadd_close(gpu, cpu, remap, flips=1e-3)
+    assert int(gpu["nclipped"].sum()) > 0
+
+
+@pytest.mark.parametrize("remap", ["shift2pass", "gather"])
+@pytest.mark.parametrize("std", ["full", "mini"])
+def test_blocked_card_matches_cpu_and_resident(dev, remap, std):
+    """The blocked co-add on the card against the CPU, and against the
+    resident co-add on the card (tests/test_coadd.py's contract: clip
+    flips on at most 1e-3 of the pixels, the image within 0.05 e-)."""
+    import numpy as np
+    from blackbox_tpu_torch.pipeline.buildref import (coadd_field,
+                                                      coadd_field_blocked)
+    inputs, wcs = _coadd_inputs(std == "mini")
+    shape = (COADD_HW, COADD_HW)
+    kw = dict(block_rows=64, pad_rows=16, remap=remap)
+    gpu = coadd_field_blocked(inputs, wcs, shape, **kw)
+    cpu = coadd_field_blocked(inputs, wcs, shape, device="cpu", **kw)
+    _coadd_close(gpu, cpu, f"{remap} {std}", flips=1e-3)
+    res = coadd_field(inputs, wcs, shape, remap=remap)
+    flip = gpu["nclipped"] != res["nclipped"].cpu().numpy()
+    assert flip.mean() < 1e-3
+    d = np.abs(gpu["image"] - res["image"].cpu().numpy())[~flip]
+    assert d.max() < 0.05, d.max()
+    np.testing.assert_array_equal(gpu["mask"], res["mask"].cpu().numpy())
+
+
+def test_blocked_instrumented_on_card(dev):
+    """instrument=True on the card: the stage breakdown, and the outputs
+    of the pipelined run unchanged."""
+    import numpy as np
+    from blackbox_tpu_torch.pipeline.buildref import coadd_field_blocked
+    inputs, wcs = _coadd_inputs(True)
+    shape = (COADD_HW, COADD_HW)
+    a = coadd_field_blocked(inputs, wcs, shape, block_rows=64, pad_rows=16)
+    b = coadd_field_blocked(inputs, wcs, shape, block_rows=64, pad_rows=16,
+                            instrument=True)
+    assert b["timings"]["nblocks"] == 4 and b["timings"]["compute_s"] > 0
+    for k in ("image", "wsum", "nclipped", "mask", "bkg_std"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_blocked_mini_std_against_full_res_on_card(dev):
+    """The mini-mesh std source against the full-res planes on the card.
+    The full-res planes are mini2back's (Wy @ mesh) @ Wx.T over all
+    rows; the mini source computes the same product over a slab's rows.
+    cuBLAS picks its kernel by shape and could round the shorter product
+    differently, so the outputs are held at the card-against-CPU
+    tolerances (chip_smoke.py phase 8 prints whether the full-width
+    co-adds are bit-identical)."""
+    from blackbox_tpu_torch.pipeline.buildref import coadd_field_blocked
+    shape = (COADD_HW, COADD_HW)
+    kw = dict(block_rows=64, pad_rows=16)
+    full = coadd_field_blocked(_coadd_inputs(False)[0], _coadd_inputs(
+        False)[1], shape, **kw)
+    inputs, wcs = _coadd_inputs(True)
+    mini = coadd_field_blocked(inputs, wcs, shape, **kw)
+    _coadd_close(mini, full, "mini vs full", flips=1e-3)

@@ -38,6 +38,14 @@ What is held, product by product:
 - transients: ``T-NTRANS`` equal and the peak pixels equal but for
   ``peak_ties``, the rest of the catalog at the Scorr and flux
   tolerances of ``test_torch_science.py``.
+
+Both pipelines carry known asteroids (``sso_elements``: one that the
+ephemeris puts on the transient at the second visit, one elsewhere) and
+a blind-solve quad index over the calibration stars (``blind_index``).
+After the night a third visit, whose header points half a degree off,
+goes through both: the seeded solve fails and the blind solve finds the
+frame, with the same flags, match counts and solution in both; the SSO
+columns of the transient catalog are equal.
 """
 
 import os
@@ -74,24 +82,48 @@ def nights(tmp_path_factory):
     query = NP.ref_catalog(stars, TINY.red_shape)
     js = JSettings(geometry=JTINY, pixscale=NP.PIXSCALE, create_ref=True)
     jctx = _ctx(js)
-    out = {"files": [os.path.relpath(f, raw_root) for f in files]}
+    out = {"files": [os.path.relpath(f, raw_root) for f in files],
+           "stars": stars}
+    kw = dict(ref_catalog=query, sso_elements=_sso_elements(files[-1]),
+              blind_index=NP.quad_index(stars, TINY.red_shape))
     for side in ("jax", "port"):
         root = os.path.join(base, side)
         shutil.copytree(raw_root, root)
         if side == "jax":
-            pipe = JPipeline(JTree(root, "ML1"), "ML1", js, jctx,
-                             ref_catalog=query)
+            pipe = JPipeline(JTree(root, "ML1"), "ML1", js, jctx, **kw)
         else:
             s = ReductionSettings(geometry=TINY, pixscale=NP.PIXSCALE,
                                   create_ref=True)
             ctx = ReduceContext.from_reference(jctx)
             assert ctx == NP.tiny_ctx(s)
             pipe = tdriver.Pipeline(DataTree(root, "ML1"), "ML1", s, ctx,
-                                    ref_catalog=query, device="cpu")
+                                    device="cpu", **kw)
         out[side] = ([pipe.process_file(os.path.join(root, f))
                       for f in out["files"]], root)
-    out["port_pipe"] = pipe
+        out[side + "_pipe"] = pipe
     return out
+
+
+SSO_HIT = "K26A01B"
+
+
+def _sso_elements(visit):
+    """An asteroid on the transient at the visit's mid-exposure (the
+    driver's MJD-OBS), as seen from the ML1 site, and one 20 arcmin
+    away."""
+    from blackbox_tpu_torch.astro.time import iso2mjd
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    from blackbox_tpu_torch.config.base import get_par
+    from blackbox_tpu_torch.io.fits import read_fits
+    h = read_fits(visit)[0][1]
+    mjd = round(iso2mjd(str(h["DATE-OBS"]))
+                + float(h["EXPTIME"]) / 172800.0, 8)
+    site = get_par(ReductionSettings().site, "ML1")
+    ra, dec = TanWCS.simple(NP.RA0, NP.DEC0, NP.PIXSCALE,
+                            TINY.red_shape).pix2sky(*NP.TRANS[:2])
+    return [NP.sso_elements_at(float(ra), float(dec), mjd, site, SSO_HIT),
+            NP.sso_elements_at(float(ra) + 0.3, float(dec) - 0.2, mjd, site,
+                               "K26A02C")]
 
 
 def _level(nights):
@@ -273,13 +305,10 @@ def test_timing_spans(nights):
 
 
 UNPORTED = {
-    "sso_elements": ("sso", dict(sso_elements=[object()])),
-    "mpcorb_file": ("sso", dict(settings={"mpcorb_file": "MPCORB.DAT"})),
     "trailnet_params": ("trailnet", dict(trailnet_params={})),
     "sat_model_path": ("trailnet", dict(settings={
         "use_unet_sat": True, "sat_model_path": "asta.h5"})),
     "vetnet_params": ("vetnet", dict(vetnet_params={})),
-    "blind_index": ("blindsolve", dict(blind_index=object())),
 }
 
 
@@ -317,3 +346,85 @@ def test_pipeline_defaults_to_the_card(nights, tmp_path):
     assert pipe.device.type == "cuda"
     r = pipe.process_file(raw)
     assert r.status == "error" and "CUDA" in r.error.upper(), r.error
+
+
+def test_sso_columns_match_jax(nights):
+    """The second visit's transients carry the SSO columns in both
+    packages, equal, with the asteroid on the transient matched."""
+    for side in ("port", "jax"):
+        h = nights[side][0][-1].header
+        assert h["SSO-P"] is True and h["N-SSO"] == 1, side
+    (tb, ta), = NP.pairs(nights["port"], nights["jax"], "_red_trans.fits")
+    ca, cb = NP.table(ta), NP.table(tb)
+    for k in ("SSO_DESIG", "SSO_SEP", "SSO_MAG"):
+        x, y = np.asarray(ca[k]), np.asarray(cb[k])
+        if k == "SSO_DESIG":
+            assert list(x) == list(y), k
+        else:
+            np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-3,
+                                       err_msg=k)
+    hit = [i for i, d in enumerate(ca["SSO_DESIG"]) if d.strip() == SSO_HIT]
+    assert len(hit) == 1
+    x = np.asarray(ca["X_PEAK"])[hit[0]] - 1
+    y = np.asarray(ca["Y_PEAK"])[hit[0]] - 1
+    assert np.hypot(x - NP.TRANS[0], y - NP.TRANS[1]) < 2.0
+    assert float(np.asarray(ca["SSO_SEP"])[hit[0]]) < 2.0
+
+
+def test_mpcorb_file_loads_the_elements(tmp_path):
+    """settings.mpcorb_file is parsed into the pipeline's elements, as
+    in the JAX package; an unreadable file turns the matching off."""
+    from blackbox_tpu.pipeline.driver import Pipeline as JP
+    from test_sso import _mpcorb_line
+    line = _mpcorb_line()
+    p = tmp_path / "MPCORB.DAT"
+    p.write_text(line + "\n")
+    for path, n_el in ((str(p), 1), (str(tmp_path / "missing.DAT"), 0)):
+        s = ReductionSettings(geometry=TINY)
+        s.mpcorb_file = path
+        got = tdriver.Pipeline(DataTree(str(tmp_path), "ML1"), "ML1", s,
+                               device="cpu").sso_elements
+        js = JSettings(geometry=JTINY)
+        js.mpcorb_file = path
+        want = JP(JTree(str(tmp_path), "ML1"), "ML1", js).sso_elements
+        assert len(got) == len(want) == n_el
+        assert [e.designation for e in got] == \
+            [e.designation for e in want]
+
+
+def test_lost_pointing_blind_solve(nights):
+    """A visit whose header points half a degree off: the seeded solve
+    fails, the blind solve over the quad index finds the frame
+    (A-BLIND), and the frame is calibrated and subtracted as the night's
+    second visit is.  Both packages give the same flags, match counts
+    and solution."""
+    runs = {}
+    for side in ("port", "jax"):
+        root = nights[side][1]
+        path = NP.lost_pointing_visit(root, nights["stars"])
+        runs[side] = ([nights[side + "_pipe"].process_file(path)], root)
+    NP.check_statuses(runs["port"], runs["jax"])
+    h, hj = (runs[s][0][0].header for s in ("port", "jax"))
+    assert set(h.keys()) == set(hj.keys())
+    assert all(h[k] == hj[k] for k in h.keys() if k.endswith("-P"))
+    for k in ("A-BLIND", "A-NAST", "PC-NCAL", "T-NTRANS", "QC-FLAG"):
+        assert h[k] == hj[k], k
+    # the solution: the reference point within 1e-3 px, the CD matrix,
+    # the rms and the zeropoint as the night's keywords
+    for k in ("CRVAL1", "CRVAL2"):
+        assert abs(h[k] - hj[k]) <= 1e-3 * NP.PIXSCALE / 3600, k
+    for k in ("CD1_1", "CD1_2", "CD2_1", "CD2_2", "A-RMS"):
+        assert abs(h[k] - hj[k]) <= NP.FLOAT_RTOL * abs(hj[k]), k
+    assert abs(h["PC-ZP"] - hj["PC-ZP"]) <= 1e-3
+    assert h["A-BLIND"] is True and h["A-P"] is True, dict(h.items())
+    assert h["PC-P"] is True and h["TRANS-P"] is True
+    # the blind WCS puts the frame where the stars are, not where the
+    # header pointed
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    wcs = TanWCS.from_header(h)
+    ra, dec = wcs.pix2sky(*(np.asarray(v) for v in nights["stars"][:, :2].T))
+    want = TanWCS.simple(NP.RA0, NP.DEC0, NP.PIXSCALE, TINY.red_shape)
+    ra0, dec0 = want.pix2sky(*(np.asarray(v)
+                               for v in nights["stars"][:, :2].T))
+    d = np.hypot((ra - ra0) * np.cos(np.radians(NP.DEC0)), dec - dec0)
+    assert np.median(d) * 3600 < 1.0

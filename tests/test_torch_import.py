@@ -79,6 +79,16 @@ SLICE_MODULES = [
     "blackbox_tpu_torch.pipeline.catalogs",
     "blackbox_tpu_torch.pipeline.driver",
     "blackbox_tpu_torch.report.quicklook",
+    "blackbox_tpu_torch.ops.coadd",
+    "blackbox_tpu_torch.pipeline.buildref",
+    "blackbox_tpu_torch.sso",
+    "blackbox_tpu_torch.sso.match",
+    "blackbox_tpu_torch.sso.mpcorb",
+    "blackbox_tpu_torch.astro.blindsolve",
+    "blackbox_tpu_torch.orchestration.ingest",
+    "blackbox_tpu_torch.orchestration.scheduler",
+    "blackbox_tpu_torch.report.obslog",
+    "blackbox_tpu_torch.__main__",
 ]
 
 # Host modules copied from blackbox_tpu, by dotted path under each
@@ -119,6 +129,22 @@ HOST_COPIES = {
                                  "first"},
     "report.quicklook": {},
     "synth.generator": {}, "synth.observation": {},
+    "sso": {}, "sso.match": {}, "sso.mpcorb": {},
+    "astro.blindsolve": {
+        "_build_lib": "builds into the package's _build/, never into the "
+                      "source tree, under a private name renamed into "
+                      "place"},
+    "orchestration.ingest": {},
+    "orchestration.scheduler": {
+        "_run_batched_objects": "raises NotImplementedError naming "
+                                "parallel/: the sharded multi-device "
+                                "batches are not ported yet"},
+    "report.obslog": {},
+    "__main__": {
+        "build_parser": "the program's name and description",
+        "main": "takes the device the pixel work runs on; "
+                "--finding_chart raises NotImplementedError naming "
+                "report/finding_chart.py, not ported yet"},
 }
 
 # single host functions copied into modules of the port that are not
@@ -130,6 +156,10 @@ HOST_FUNCTIONS = [
     ("ops.nonlin", "convert_reference_splines"),
     ("ops.nonlin", "convert_reference_splines_to_npy"),
     ("pipeline.subtract", "_measure_scaling"),
+    ("ops.coadd", "ClipParams"), ("ops.coadd", "a_swarp_search"),
+    ("pipeline.buildref", "BuildRefSettings"),
+    ("pipeline.buildref", "select_images"),
+    ("pipeline.buildref", "choose_clip_params"),
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
