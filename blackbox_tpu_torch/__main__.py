@@ -9,9 +9,8 @@
 
 The flags are the JAX package's.  The pixel work runs on the card;
 ``main(argv, device="cpu")`` runs it on the CPU (the tests do).  Not
-ported yet: ``--finding_chart`` (``report/finding_chart.py``) and
-``device_batch > 1`` in day mode (``parallel/``), each refused with
-``NotImplementedError``.
+ported yet: ``device_batch > 1`` in day mode (``parallel/``), refused
+with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -105,9 +104,19 @@ def main(argv=None, device="cuda") -> int:
                "%(funcName)s:%(lineno)d %(message)s")
 
     if args.finding_chart:
-        raise NotImplementedError(
-            "--finding_chart needs report/finding_chart.py, which "
-            "blackbox_tpu_torch does not port yet")
+        # standalone tool, no pipeline construction (reference ships
+        # finding_chart.py as its own CLI, finding_chart.py:56-328)
+        from blackbox_tpu_torch.report.finding_chart import \
+            chart_from_product
+        ra, dec, fits_red = args.finding_chart
+        out = chart_from_product(
+            fits_red, ra, dec, size_arcmin=args.size_arcmin,
+            target_name=args.target_name,
+            output_format=args.output_format,
+            info={"run": args.run_id, "PI": args.pi_name,
+                  "OB": args.ob_name}, device=device)
+        print(out)
+        return 0
 
     from blackbox_tpu_torch.config.defaults import ReductionSettings
     from blackbox_tpu_torch.orchestration.paths import DataTree

@@ -7,7 +7,9 @@ bilinear sampling of the spectrum along each angle's central slice, and
 batched 1-D inverse FFTs (``torch.fft``).  Trails are peaks of the
 band-integrated line statistic over (angle, offset); the peaks are
 rasterised back into a widened trail mask.  The tiled segment mode
-(``detect_trail_segments``) is not part of this port's slice.
+(:func:`detect_trail_segments`) runs the same detector on overlapping
+subframes and merges their lines with a greedy NMS, which runs on the
+host over the 80 lines (nine tiles and a seed pass of 8 slots each).
 """
 
 from __future__ import annotations
@@ -121,8 +123,15 @@ def _boxsum(a, w: int):
     return out
 
 
+def _top_k(vals, k: int):
+    """``lax.top_k``: the k largest values, equal values in index order."""
+    v, i = torch.sort(vals, descending=True, stable=True)
+    return v[:k], i[:k]
+
+
 def detect_trails(image, mask_excl=None, params: SatDetParams = SatDetParams(),
-                  seam_rows: tuple = (), seam_cols: tuple = ()):
+                  seam_rows: tuple = (), seam_cols: tuple = (),
+                  want_lines: bool = False):
     """Detect straight bright trails.
 
     image     : (H, W) background-subtracted (or raw; the median is removed)
@@ -131,7 +140,11 @@ def detect_trails(image, mask_excl=None, params: SatDetParams = SatDetParams(),
         boundaries; axis-aligned detections whose mask would cover a
         seam are instrument artefacts and are vetoed.
 
-    Returns (trail_mask bool (H, W), n_trails, peak_snr (max_trails,)).
+    Returns (trail_mask bool (H, W), n_trails, peak_snr (max_trails,)),
+    plus, with ``want_lines=True``, a dict of per-slot line parameters
+    ``{"theta" (rad), "t" (signed offset, BINNED px, corner origin),
+    "snr" (0 = inactive slot)}`` for the segment mode's cross-tile
+    dedup (a line is ``(x/f)·cosθ + (y/f)·sinθ = t``).
     """
     p = params
     H, W = image.shape
@@ -211,7 +224,7 @@ def detect_trails(image, mask_excl=None, params: SatDetParams = SatDetParams(),
     local_max = F.max_pool2d(padded[None, None], (aw, tw), stride=1)[0, 0]
     is_peak = (snr >= local_max) & (snr > p.nsigma)
     vals = torch.where(is_peak, snr, 0.0).reshape(-1)
-    top_v, i = torch.topk(vals, p.max_trails)
+    top_v, i = _top_k(vals, p.max_trails)
     th = thetas[i // N]
     m0 = (i % N).to(torch.float32)
     w_at = band_w.reshape(-1)[i]
@@ -280,4 +293,120 @@ def detect_trails(image, mask_excl=None, params: SatDetParams = SatDetParams(),
         t = (ys * sth[k])[:, None] + (xs * cth[k])[None, :]
         d = torch.abs(_jmod(t - m0_ref[k] + N / 2.0, float(N)) - N / 2.0)
         trail_mask |= d * f <= hw_k[k]
+    if want_lines:
+        # canonical signed offset in [-N/2, N/2): offsets from different
+        # tile/frame mod bases are comparable
+        t_phys = _jmod(m0_ref + N / 2.0, float(N)) - N / 2.0
+        return trail_mask, n_trails, top_v, {"theta": th, "t": t_phys,
+                                             "snr": top_v}
     return trail_mask, n_trails, top_v
+
+
+def detect_trail_segments(image, mask_excl=None,
+                          params: SatDetParams = SatDetParams(),
+                          seam_rows: tuple = (), seam_cols: tuple = (),
+                          tiles: int = 2, exclude_lines=None):
+    """Partial-trail detection: :func:`detect_trails` on an overlapping
+    ``(2·tiles-1) x (2·tiles-1)`` grid of half-stride subframes, with a
+    cross-tile NMS so every physical trail counts ONCE.
+
+    The full-frame statistic integrates each candidate line end to end,
+    so a streak lighting only ~1/4 of its line fails the lit-fraction
+    gate at any amplitude; within a subframe the segment spans most of
+    the local line, and a segment-tuned gate (lit fraction 0.3, peak
+    threshold floored at 12 sigma) admits it.
+
+    Each tile's detections carry global line parameters (θ, offset); a
+    greedy snr-ordered NMS merges lines that coincide within the
+    angle-grid resolution and the offset wander.  ``exclude_lines`` (the
+    lines of a full-frame ``detect_trails(..., want_lines=True)`` call,
+    same binning) seeds the NMS with already-counted trails: their tile
+    detections are suppressed and not counted, so ``n_trails_full +
+    n_segments`` counts physical trails.  Every slot of
+    ``exclude_lines`` seeds, its inactive ones too, as in the JAX
+    package (a fault of the reference, matched: those slots sit at
+    θ = 0 near the left edge and can suppress a streak there).
+
+    Returns (mask bool (H, W), n_new int32, the new lines' top-k
+    significances (max_trails,)).
+    """
+    params = dataclasses.replace(
+        params, lit_frac=min(params.lit_frac, 0.3),
+        nsigma=max(params.nsigma, 12.0))
+    H, W = image.shape
+    th_, tw_ = H // tiles, W // tiles
+    # overlapping tile grid (stride = half a tile), the last start
+    # pinned to the frame edge so the remainder strip is covered
+    y0s = sorted({min(i * th_ // 2, H - th_)
+                  for i in range(2 * tiles - 1)} | {H - th_})
+    x0s = sorted({min(i * tw_ // 2, W - tw_)
+                  for i in range(2 * tiles - 1)} | {W - tw_})
+    mask = torch.zeros((H, W), dtype=torch.bool, device=image.device)
+    f = float(params.bin_factor)
+    thetas_all, ts_all, snrs_all, seeds_all = [], [], [], []
+    if exclude_lines is not None:
+        thetas_all.append(exclude_lines["theta"])
+        ts_all.append(exclude_lines["t"])
+        snrs_all.append(exclude_lines["snr"])
+        seeds_all.append(torch.ones_like(exclude_lines["snr"],
+                                         dtype=torch.bool))
+    for y0 in y0s:
+        for x0 in x0s:
+            sub = image[y0:y0 + th_, x0:x0 + tw_]
+            sexcl = (None if mask_excl is None
+                     else mask_excl[y0:y0 + th_, x0:x0 + tw_])
+            # inclusive lower bound: tile origins land on mid-frame seams
+            srows = tuple(r - y0 for r in seam_rows if y0 <= r < y0 + th_)
+            scols = tuple(c - x0 for c in seam_cols if x0 <= c < x0 + tw_)
+            m, _, _, ln = detect_trails(sub, sexcl, params, seam_rows=srows,
+                                        seam_cols=scols, want_lines=True)
+            mask[y0:y0 + th_, x0:x0 + tw_] |= m
+            # tile-local line -> global frame coordinates
+            t_g = ln["t"] + (x0 * torch.cos(ln["theta"])
+                             + y0 * torch.sin(ln["theta"])) / f
+            thetas_all.append(ln["theta"])
+            ts_all.append(t_g)
+            snrs_all.append(ln["snr"])
+            seeds_all.append(torch.zeros_like(ln["snr"], dtype=torch.bool))
+
+    theta = torch.cat(thetas_all)
+    t_off = torch.cat(ts_all)
+    snr = torch.cat(snrs_all)
+    seed = torch.cat(seeds_all)
+
+    # ---- cross-tile greedy NMS in (θ, global offset) space ----
+    n_angles = 2 * params.n_slopes
+    dth_grid = np.pi / n_angles
+    wmax = max((1,) + tuple(params.band_widths))
+    min_tile_b = min(th_, tw_) / f
+    # angle tolerance: the in-tile NMS's ghost-fan slack; offset
+    # tolerance: the wander over the full frame plus the band slack
+    ang_steps = int(np.clip(2 * round(wmax / (min_tile_b * dth_grid))
+                            + 1, 5, 33))
+    ang_tol = 0.5 * ang_steps * dth_grid + 1e-6
+    wander_full = 1.42 * (max(H, W) / f) * np.pi / (2.0 * n_angles)
+    t_tol = wander_full + 0.5 * wmax + 2.0
+
+    dth = theta[:, None] - theta[None, :]
+    dt = t_off[:, None] - t_off[None, :]
+    st = t_off[:, None] + t_off[None, :]
+    direct = (torch.abs(dth) <= ang_tol) & (torch.abs(dt) <= t_tol)
+    # θ lives on [0, π): a line near 0 registers at θ≈0 in one tile and
+    # θ≈π-δ (with negated offset) in another
+    flipped = ((torch.abs(torch.abs(dth) - np.pi) <= ang_tol)
+               & (torch.abs(st) <= t_tol))
+    same = direct | flipped
+    active = seed | (snr > 0)
+    # seeds first, then by snr: a kept entry suppresses every matching
+    # later one
+    order = torch.argsort(-(torch.where(seed, np.float32(1e9), 0.0) + snr),
+                          stable=True)
+    same_o = same[order][:, order].cpu().numpy()
+    keep = active[order].cpu().numpy()
+    for k in range(len(keep)):
+        if keep[k]:
+            keep[k + 1:] &= ~same_o[k, k + 1:]
+    new = torch.from_numpy(keep).to(snr.device) & ~seed[order]
+    n_tot = torch.sum(new, dtype=torch.int32)
+    snr_out, _ = _top_k(torch.where(new, snr[order], 0.0), params.max_trails)
+    return mask, n_tot, snr_out

@@ -19,11 +19,15 @@ statistics) converts with ``.cpu()``.
 
 The solar-system matching (``sso_elements``, ``mpcorb_file``) and the
 blind astrometric solve (``blind_index``) are host code, as in the JAX
-package.  Not in this port yet, and refused with
-``NotImplementedError`` naming the missing module when asked for: the
-U-Net trail segmentation (``trailnet_params``, or ``use_unet_sat`` with
-``sat_model_path``), the real/bogus network (``vetnet_params``) and the
-batched runner's precomputed device work
+package.  The U-Net trail segmentation (``trailnet_params``, or
+``use_unet_sat`` with ``sat_model_path``: a keras ``.h5``/``.hdf5``/
+``.keras`` file or a state dict saved by
+:func:`blackbox_tpu_torch.models.trailnet.save_params`) and the
+real/bogus network (``vetnet_params``) run on ``device`` (their state
+dicts; :func:`blackbox_tpu_torch.models.trailnet.from_jax_params`
+carries the JAX package's flax parameters across).  Not in this port
+yet, and refused with ``NotImplementedError`` naming the missing
+module: the batched runner's precomputed device work
 (``process_file(device_override=...)``).
 """
 
@@ -131,13 +135,6 @@ class Pipeline:
         self.telescope = telescope
         self.device = torch.device(device)
         self.settings = settings or ReductionSettings()
-        if trailnet_params is not None or (
-                getattr(self.settings, "use_unet_sat", False)
-                and getattr(self.settings, "sat_model_path", None)):
-            raise _not_ported("the U-Net trail segmentation",
-                              "models/trailnet.py")
-        if vetnet_params is not None:
-            raise _not_ported("real/bogus scoring", "models/vetnet.py")
         self.ctx = ctx or ReduceContext.from_settings(
             self.settings, telescope)
         self.geom = self.ctx.geom
@@ -166,6 +163,29 @@ class Pipeline:
         # survey field grid {field_id: (ra, dec)} for the RADECOFF
         # pointing check
         self.field_grid = field_grid
+        # optional U-Net trail segmentation (ASTA equivalent) applied on
+        # top of the Radon detector's mask; params may come from the
+        # sat_model_path setting
+        if (trailnet_params is None
+                and getattr(self.settings, "use_unet_sat", False)
+                and getattr(self.settings, "sat_model_path", None)):
+            mp = str(self.settings.sat_model_path)
+            try:
+                if mp.endswith((".h5", ".hdf5", ".keras")):
+                    # production ASTA weight file (keras)
+                    from blackbox_tpu_torch.models.trailnet import \
+                        convert_keras_weights
+                    trailnet_params = convert_keras_weights(mp)
+                else:
+                    from blackbox_tpu_torch.models.trailnet import \
+                        load_params
+                    trailnet_params = load_params(mp)
+            except Exception:
+                log.exception("could not load trail U-Net weights "
+                              "from %s", mp)
+        self.trailnet_params = trailnet_params
+        # optional real/bogus CNN (MeerCRAB equivalent, MC-P contract)
+        self.vetnet_params = vetnet_params
         # optional QuadIndex for the blind-solve fallback when the
         # seeded solve fails (lost pointing)
         self.blind_index = blind_index
@@ -437,7 +457,8 @@ class Pipeline:
                         "static bad-pixel mask applied")
 
             with timer(SPAN_CALIB, sync=dev, spans=self._spans):
-                if imgtype == "object" and cat_extract:
+                if (imgtype == "object" and cat_extract
+                        and self.trailnet_params is None):
                     # calibration + extraction in one call; on a QC-red
                     # frame the speculative extraction is discarded
                     sci, mask, stats, fused_ext = self._reduce_sci(
@@ -448,6 +469,22 @@ class Pipeline:
                 else:
                     sci, mask, stats = self._calibrate_cal(
                         chan, osv, osh, mbias, mflat, bpm)
+                if self.trailnet_params is not None and \
+                        imgtype == "object" and \
+                        getattr(self.settings, "use_unet_sat", True):
+                    # the U-Net's mask joins the Radon detector's
+                    # before the extraction reads it
+                    from blackbox_tpu_torch.core import maskbits
+                    from blackbox_tpu_torch.models.trailnet import \
+                        segment_trails
+                    with torch.inference_mode():
+                        tmask, _ = segment_trails(self.trailnet_params,
+                                                  sci)
+                        mask = torch.where(
+                            tmask & ((mask & maskbits.EDGE) == 0),
+                            mask | maskbits.SATELLITE, mask)
+                    h["ASTA-P"] = (True,
+                                   "U-Net trail segmentation applied?")
             del chan, osv, osh, mbias, mflat
             stats = {k: _host(v) for k, v in stats.items()}
             sci_np = _host(sci).astype(np.float32, copy=False)
@@ -937,8 +974,17 @@ class Pipeline:
             "ELONG_ZOGY": tc["elong"][sel].astype(np.float32),
             "NPIX_ZOGY": tc["npix"][sel].astype(np.int32),
         }
-        # (the real/bogus network is refused in __init__ until
-        # models/vetnet.py is ported)
+        # real/bogus CNN scoring (the MC-P keyword)
+        if self.vetnet_params is not None and len(sel):
+            from blackbox_tpu_torch.models.vetnet import score_transients
+            probs = _host(score_transients(
+                self.vetnet_params, sci, res.ref_remapped, res.D,
+                res.Scorr, tc["x"][sel], tc["y"][sel]))
+            tcols["CLASS_REAL"] = probs.astype(np.float32)
+            h["MC-P"] = (True, "transients ML-classified?")
+            h["MC-MED"] = (round(float(np.median(probs)), 3)
+                           if len(probs) else 0.0,
+                           "median P(real) of candidates")
 
         # known-asteroid cross-match
         if self.sso_elements:

@@ -11,9 +11,6 @@ k x k medians, window gathers, the fused detection under
 ``LACosmicParams(use_pallas=True)``) are reached through their ``ops``
 wrappers.  The entry point :func:`make_reduce_fn` moves its inputs to
 the card unless it is asked for another device.
-
-Not in this slice: the tiled satellite-segment mode
-(``detect_sat_segments`` raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -39,7 +36,8 @@ from blackbox_tpu_torch.ops.overscan import OverscanParams, overscan_correct
 from blackbox_tpu_torch.ops.photometry import aperture_photometry
 from blackbox_tpu_torch.ops.psf import (PSFParams, build_psf, psf_at,
                                         psf_fwhm, psf_photometry)
-from blackbox_tpu_torch.ops.satdet import SatDetParams, detect_trails
+from blackbox_tpu_torch.ops.satdet import (SatDetParams, detect_trail_segments,
+                                          detect_trails)
 from blackbox_tpu_torch.ops.stats import masked_median, median
 from blackbox_tpu_torch.ops.xtalk import xtalk_correct, xtalk_correct_mosaic
 
@@ -204,18 +202,24 @@ def calibrate_detector(ctx: ReduceContext, chan_data, os_vert, os_hori,
     # satellite trails; EDGE pixels are excluded too (overscan artefacts
     # forming straight lines along the channel seams)
     if ctx.detect_sats:
+        excl, seam_rows, seam_cols = trail_exclusion(geom, mask_m)
         if ctx.detect_sat_segments:
-            raise NotImplementedError("detect_sat_segments is not ported")
-        excl = (mask_m & (maskbits.SATURATED | maskbits.SAT_CONNECTED
-                          | maskbits.BAD | maskbits.EDGE)) != 0
-        Hr, Wr = geom.red_shape
-        seam_rows = tuple(geom.ysize_chan * i
-                          for i in range(1, Hr // geom.ysize_chan))
-        seam_cols = tuple(geom.xsize_chan * j
-                          for j in range(1, Wr // geom.xsize_chan))
-        trail_mask, ntrails, _ = detect_trails(
-            clean, excl, ctx.sat_params, seam_rows=seam_rows,
-            seam_cols=seam_cols)
+            # full-frame pass first (more sensitive to faint full
+            # trails), then the tiled segment pass for short streaks,
+            # seeded with the full-frame lines so NSATS counts each
+            # physical trail once
+            trail_mask, ntrails, _, lines = detect_trails(
+                clean, excl, ctx.sat_params, seam_rows=seam_rows,
+                seam_cols=seam_cols, want_lines=True)
+            seg_mask, n_seg, _ = detect_trail_segments(
+                clean, excl, ctx.sat_params, seam_rows=seam_rows,
+                seam_cols=seam_cols, exclude_lines=lines)
+            trail_mask = trail_mask | seg_mask
+            ntrails = ntrails + n_seg
+        else:
+            trail_mask, ntrails, _ = detect_trails(
+                clean, excl, ctx.sat_params, seam_rows=seam_rows,
+                seam_cols=seam_cols)
         mask_m = torch.where(trail_mask & ((mask_m & maskbits.EDGE) == 0),
                              mask_m | maskbits.SATELLITE, mask_m)
         stats["nsats"] = ntrails
@@ -236,6 +240,21 @@ def calibrate_detector(ctx: ReduceContext, chan_data, os_vert, os_hori,
     for name, bit in maskbits.BITS.items():
         stats[f"n_{name}"] = _count((mask_m & bit) == bit)
     return clean, mask_m, stats
+
+
+def trail_exclusion(geom, mask_m):
+    """What the trail detector ignores in a frame: its saturated, bad
+    and EDGE pixels (overscan artefacts forming straight lines along the
+    channel seams), and the seams' full-resolution rows and columns,
+    whose axis-aligned detections it vetoes."""
+    excl = (mask_m & (maskbits.SATURATED | maskbits.SAT_CONNECTED
+                      | maskbits.BAD | maskbits.EDGE)) != 0
+    Hr, Wr = geom.red_shape
+    seam_rows = tuple(geom.ysize_chan * i
+                      for i in range(1, Hr // geom.ysize_chan))
+    seam_cols = tuple(geom.xsize_chan * j
+                      for j in range(1, Wr // geom.xsize_chan))
+    return excl, seam_rows, seam_cols
 
 
 def extract_catalog(ctx: ReduceContext, sci, mask_m):

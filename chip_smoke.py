@@ -18,7 +18,9 @@ Phases, each printing its own lines:
    timed apart under ``torch.profiler``), and the fused detection (K5)
    in its detection form (the star field, 9 taps, a std map, an
    exclusion, 32 steps) and its transient form (|x|, no taps, 48
-   steps).  Both times come from CUDA events; each kernel's bound is
+   steps).  Both times come from CUDA events (K4's two calls, ~0.1 ms
+   each, as the median of 25 launches each timed apart,
+   ``median_ms``); each kernel's bound is
    worked out from the bytes it must move and the operations it must
    do at those shapes (``bound``; K4's for each of its two calls).
    The times of K1's, K5's, K6's and K7's previous designs are printed
@@ -94,18 +96,45 @@ Phases, each printing its own lines:
    float32 rounding of full-width coordinates), and a fourth visit with
    NTRANS new transients subtracted against the co-add: at least 16
    found, Z-FRATIO within 5% of 1.25.
-9. One JSON line with the kernels' counts and times (K4's with the
-   time of the same gathers by advanced indexing, ``library_ms``), then
-   the last line ``{"ok": true, "device": {...}}``.
+9. The networks and segment mode at full width (``unet_phase``,
+   ``segment_phase``, ``vetnet_phase``): the trail U-Net trained on the
+   card at the JAX package's defaults (300 steps of 8 synthetic 128²
+   tiles), then ``segment_trails`` on phase 3's last calibrated frame
+   (its injected trail included) on the card and on the CPU with the
+   same parameters (binned 2640² masks equal outside |p - 0.5| <= 1e-4,
+   K1 in its area filter); a quarter-frame streak at 5 sigma a pixel
+   injected into that frame, the full-frame pass with its lines and the
+   seeded segment pass as ``calibrate_detector`` runs them under
+   ``detect_sat_segments`` (the full frame counts the trail once; the
+   streak adds exactly one segment, with 80% of its core masked, to the
+   frame's own segment count, which the trail's ghost lines set, a
+   reference fault), and the two passes on the card against
+   the CPU on the frame's lower-left quarter; the real/bogus CNN trained
+   on the card (400 steps of 32), then a fifth visit of phase 7's field
+   (NTRANS new transients) through ``Pipeline.process_file`` with both
+   networks against phase 8's co-add: ASTA-P and SATELLITE bits; where
+   the U-Net's mask sends it to QC red through S-ELOSTD (the moments
+   fault of phase 7), again with the real/bogus network alone: MC-P, at
+   least 16 transients, CLASS_REAL in [0, 1], ``score_transients`` on
+   the card against the CPU to 1e-4 on the maps the driver scored; then, outside
+   the counted run, ``orient_data``'s Lanczos route on a cut-out around
+   a transient (card against CPU) and K1 at the U-Net's 2640² shape
+   against its plain version.
+10. One JSON line with the kernels' counts and times (K4's with the
+   time of the same gathers by advanced indexing, ``library_ms``; K1's
+   with its time at the U-Net's shape, ``unet_*``), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each of phases 3, 4, 5, 7's
-full night and 8 and read just after it: every kernel of a phase's path
+full night, 8 and 9 and read just after it: every kernel of a phase's path
 must have moved, K1 must show 1 launch per catalog frame and 2 per
 science frame (its 48 transient steps are one launch), K6 6 per science
 frame, K7 3 per frame it calibrates (it counts iterations, four CUDA
 launches each) and K2 none in phase 5; the night must show K1 3 times
 (two catalogs, one subtraction) and K6 6 times, phase 8 K6 6 times
-(one subtraction).  Any failure raises:
+(one subtraction), phase 9 K1 twice for the U-Net passes over phase 3's
+frame and, in the fifth visit, once for each U-Net, catalog and
+subtraction, and K6 6 times (one subtraction).  Any failure raises:
 the script then exits non-zero and prints no ok line.
 It needs a CUDA device and the repository's port package, and the
 ``tests/night_parity.py`` helper beside it.
@@ -171,6 +200,24 @@ def cuda_ms(fn, reps: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_ms(fn, reps: int = 25) -> float:
+    """Median device ms of ``fn`` over ``reps`` launches after one
+    warm-up, each timed by its own pair of CUDA events: a ~0.1 ms call
+    timed as a mean of a few runs moves with the card's clocks (K4)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def device_times(fn):
@@ -370,17 +417,17 @@ def check_kernels(card):
                                           n_active=nact)
         ref = windows._gather_plain((img, seg), y0, x0, size, nact)
         err = max(err, *(max_abs_err(a, b) for a, b in zip(got, ref)))
-        tk = cuda_ms(lambda: windows.gather_slot_windows(
+        tk = median_ms(lambda: windows.gather_slot_windows(
             (img, seg), y0, x0, size, n_active=nact))
-        tpl = cuda_ms(lambda: windows._gather_plain((img, seg), y0, x0,
-                                                    size, nact))
+        tpl = median_ms(lambda: windows._gather_plain((img, seg), y0, x0,
+                                                      size, nact))
         # the library's form of the same gathers: advanced indexing of
         # each frame on precomputed, clamped (N, S, S) index grids
         # (every slot, in-frame only: no fill, no n_active)
         ar = torch.arange(size, device="cuda")
         iy = (y0[:, None, None] + ar[None, :, None]).clamp(0, H - 1)
         ix = (x0[:, None, None] + ar[None, None, :]).clamp(0, W - 1)
-        tlib = cuda_ms(lambda: (img[iy, ix], seg[iy, ix]))
+        tlib = median_ms(lambda: (img[iy, ix], seg[iy, ix]))
         del iy, ix
         lib += tlib
         call_library.append(tlib)
@@ -392,10 +439,11 @@ def check_kernels(card):
         cb = bound(call_bytes)
         call_bounds.append(cb[0])
         print(f"K4 gather_slot_windows {N}x{size}^2 (f32 + int32, "
-              f"n_active {int(nact)}): bit-exact, kernel {tk:.3f} ms, "
+              f"n_active {int(nact)}): bit-exact, kernel {tk:.4f} ms, "
               f"plain {tpl:.3f} ms, library (frame[iy, ix] of both frames) "
-              f"{tlib:.3f} ms, bound {cb[0]:.4f} ms ({cb[1]}; "
-              f"{cb[0] / tk:.0%} of the kernel's time) [{card}]")
+              f"{tlib:.3f} ms (each the median of 25 launches), bound "
+              f"{cb[0]:.4f} ms ({cb[1]}; {cb[0] / tk:.1%} of the kernel's "
+              f"time) [{card}]")
     results.append(dict(entry("gather_slot_windows",
                               "blackbox_tpu_torch/csrc/gather.cu",
                               "blackbox_tpu/pallas/gather.py:61", err, ms,
@@ -775,7 +823,9 @@ def check_frame(out, ctx, label, ms, card):
 
 
 def reduce_phase(ctx, card, mbias, mflat, xtalk):
-    """Phase 3: three full MeerLICHT frames through make_reduce_fn."""
+    """Phase 3: three full MeerLICHT frames through make_reduce_fn.
+    Returns the last frame's calibrated image and mask, on the host, for
+    phase 9."""
     from blackbox_tpu_torch.pipeline.reduce import make_reduce_fn
     from blackbox_tpu_torch.synth.device import make_science_device
 
@@ -783,6 +833,7 @@ def reduce_phase(ctx, card, mbias, mflat, xtalk):
     fn = make_reduce_fn(ctx)
     torch.cuda.reset_peak_memory_stats()
     frame_ms = []
+    kept = None
     for i, seed in enumerate(SEEDS):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         chan, osv, osh, _ = make_science_device(
@@ -795,6 +846,8 @@ def reduce_phase(ctx, card, mbias, mflat, xtalk):
         check_frame(out, ctx, f"frame {i} (seed {seed}"
                     f"{', warm-up' if i == 0 else ''})", ms, card)
         frame_ms.append(ms)
+        if i == len(SEEDS) - 1:
+            kept = (out["image"].cpu(), out["mask"].cpu())
         del out, chan, osv, osh
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = frame_ms[1:]
@@ -802,6 +855,7 @@ def reduce_phase(ctx, card, mbias, mflat, xtalk):
           f"(frames {', '.join(f'{m:.1f}' for m in steady)} ms after a "
           f"{frame_ms[0]:.1f} ms warm-up), peak memory {peak_gib:.2f} GiB "
           f"[{card}]")
+    return kept
 
 
 def reference_products(ctx, front, chan, args):
@@ -1386,7 +1440,7 @@ def night_phase(ctx, card, root):
           f"phase {time.time() - t_phase:.1f} s [{card}]")
     return counts, dict(root=root, tree=tree, pipe=pipe, settings=s,
                         res=res, truth=truth, wcs1=wcs1, write=write,
-                        trans=(tx, ty))
+                        trans=(tx, ty), query=query)
 
 
 def check_night_flags(res, card):
@@ -1473,7 +1527,8 @@ def check_visit(r, label, card, keys=("S-P", "A-P", "PC-P")):
         if h.get(k) is not True:
             raise AssertionError(f"{label}: {k} = {h.get(k)}")
     if r.qc_flag == "red":
-        raise AssertionError(f"{label}: QC red")
+        raise AssertionError(f"{label}: QC red, " + ", ".join(
+            f"{k} {h[k]}" for k in h.keys() if k.startswith("QCRED")))
     ms = r.timing["wall"] * 1e3
     print(f"{label}: {r.status}, QC {r.qc_flag}, " + ", ".join(
         f"{k} {h.get(k)}" for k in ("NOBJECTS", "A-RMS", "PC-ZP", "LIMMAG",
@@ -1546,7 +1601,7 @@ def coadd_phase(card, night):
     combiner, K1 and K4 in its catalog and PSF), the resident combiner
     and the full-res std source held against it, and a fourth visit
     subtracted against the co-add.  Returns the launch counts of the
-    phase."""
+    phase and the fourth visit's timing spans."""
     import contextlib
     import io
     import logging
@@ -1792,8 +1847,388 @@ def coadd_phase(card, night):
           f"TQC-FLAG {h4.get('TQC-FLAG')}, run_subtraction "
           f"{t.get('device: run_subtraction', 0.0):.1f} ms; phase "
           f"{time.time() - t_phase:.1f} s [{card}]")
-    return counts
+    return counts, r4.timing
 
+
+
+# ---------------------------------------------------------------- phase 9
+
+# synth/device.py's satellite trail: the line through (0.1 W, 0.2 H) and
+# (0.9 W, 0.8 H), Gaussian profile of sigma 3 / 2.355 px
+TRAIL = ((0.1, 0.2), (0.9, 0.8))
+TRAIL_SIGMA = 3.0 / 2.355
+# the quarter-frame streak of the segment mode: its ends (x, y) as
+# fractions of the frame, (1500, 6500) -> (4000, 7500) px at 10560²,
+# at STREAK_SNR sigma a pixel on its core
+STREAK = ((1500 / 10560, 6500 / 10560), (4000 / 10560, 7500 / 10560))
+STREAK_SNR = 5.0
+FIFTH_SHIFT = (-3, 2)   # (dx, dy) px of the fifth visit's pointing
+BAND = 1e-4             # |p - 0.5| band of the U-Net's threshold
+
+
+def line_distance(shape, p0, p1, device):
+    """Distance in px of every pixel from the line through ``p0`` and
+    ``p1`` ((x, y) px), and its position along it (0 at p0, 1 at p1)."""
+    H, W = shape
+    yy = torch.arange(H, dtype=torch.float32, device=device)[:, None]
+    xx = torch.arange(W, dtype=torch.float32, device=device)[None, :]
+    (x0, y0), (x1, y1) = p0, p1
+    L = math.hypot(x1 - x0, y1 - y0)
+    ux, uy = (x1 - x0) / L, (y1 - y0) / L
+    d = torch.abs((xx - x0) * uy - (yy - y0) * ux)
+    along = ((xx - x0) * ux + (yy - y0) * uy) / L
+    return d, along
+
+
+def synced(fn):
+    """``fn()`` and its host ms around a synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def unet_phase(card, image, mask):
+    """Phase 9, first part: the trail U-Net trained on the card at the
+    JAX package's defaults, then segment_trails on phase 3's last
+    calibrated frame (its injected trail included) on the card and on
+    the CPU with the same parameters.  Returns the parameters and the
+    card's binned probabilities."""
+    from blackbox_tpu_torch.models import trailnet
+    t0 = time.time()
+    params = trailnet.train(device="cuda", log_every=299)
+    torch.cuda.synchronize()
+    print(f"U-Net trained on the card: 300 steps of 8 synthetic 128² "
+          f"tiles in {time.time() - t0:.1f} s (the first and last loss "
+          f"above) [{card}]")
+    cfg = trailnet.TrailNetConfig()
+    f = cfg.bin_factor
+    img = image.cuda()
+    trailnet.segment_trails(params, img)            # warm-up
+    (m_card, n_card), ms = synced(lambda: trailnet.segment_trails(params,
+                                                                  img))
+    prob = trailnet.trail_probability(params, img)
+    Hb, Wb = prob.shape
+    band = ((prob - 0.5).abs() <= BAND).cpu()
+    t0 = time.time()
+    m_cpu, n_cpu = trailnet.segment_trails(params, image)
+    cpu_s = time.time() - t0
+    b_card = m_card[:Hb * f:f, :Wb * f:f].cpu()
+    b_cpu = m_cpu[:Hb * f:f, :Wb * f:f]
+    nband = int(band.sum())
+    if not bool((b_card == b_cpu)[~band].all()):
+        raise AssertionError("U-Net: binned masks differ between the card "
+                             "and the CPU outside the 0.5 band")
+    if abs(int(n_card) - int(n_cpu)) > nband:
+        raise AssertionError(f"U-Net: n_pix {int(n_card)} on the card, "
+                             f"{int(n_cpu)} on the CPU, band {nband}")
+    # the binned pixels of the last, partly padded row and column of
+    # tiles: each such tile is normalised by its own median and MAD,
+    # which its zero padding dominates
+    T = cfg.tile
+    strip = torch.ones((Hb, Wb), dtype=torch.bool)
+    strip[:Hb // T * T, :Wb // T * T] = False
+    in_strip = int((b_card & strip).sum())
+    H, W = image.shape
+    (x0, y0), (x1, y1) = TRAIL
+    d, _ = line_distance((H, W), (x0 * W, y0 * H), (x1 * W, y1 * H),
+                         m_card.device)
+    core = d < TRAIL_SIGMA
+    share = float((m_card & core).sum()) / float(core.sum())
+    del d, core, img
+    print(f"U-Net segment_trails {H}x{W} (binned {Hb}x{Wb}, "
+          f"{-(-Hb // cfg.tile)}x{-(-Wb // cfg.tile)} tiles of "
+          f"{cfg.tile}²): card {ms:.1f} ms, CPU {cpu_s:.1f} s; binned "
+          f"pixels masked {int(n_card)} (CPU {int(n_cpu)}), masks equal "
+          f"outside |p - 0.5| <= {BAND:g} ({nband} binned pixels in the "
+          f"band), {in_strip} of them in the partly padded last row and "
+          f"column of tiles ({int(strip.sum())} binned pixels); the "
+          f"injected trail's core covered {share:.3f}; mask pixels (full "
+          f"res) {int(m_card.sum())} [{card}]")
+    return params, prob
+
+
+def segment_phase(card, ctx, image, mask):
+    """Phase 9, second part: the full-frame pass with its lines and the
+    seeded segment pass, as calibrate_detector runs them under
+    detect_sat_segments, on phase 3's frame, then with a quarter-frame
+    streak at STREAK_SNR sigma a pixel injected beside its full trail;
+    then the two passes on the card against the CPU on the frame's cut
+    that holds the streak.  The segment pass counts the frame's own
+    diagonal trail again through ghost lines, a fault of the reference
+    that the port matches (tests/test_torch_satdet.py::
+    test_diagonal_trail_ghost_count_fault): the streak must add exactly
+    one segment to that count."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import night_parity as NP
+    from blackbox_tpu_torch.ops import satdet
+    from blackbox_tpu_torch.ops.stats import median
+    from blackbox_tpu_torch.pipeline.reduce import trail_exclusion
+
+    img = image.cuda()
+    H, W = img.shape
+    excl, srows, scols = trail_exclusion(ctx.geom, mask.cuda())
+    p = ctx.sat_params
+    _, n0, _, lines0 = satdet.detect_trails(
+        img, excl, p, seam_rows=srows, seam_cols=scols, want_lines=True)
+    _, base, _ = satdet.detect_trail_segments(
+        img, excl, p, seam_rows=srows, seam_cols=scols, exclude_lines=lines0)
+    n0, base = int(n0), int(base)
+    sub = img[::16, ::16]
+    sigma = float(1.4826 * median((sub - median(sub)).abs()))
+    ends = [(x * W, y * H) for x, y in STREAK]
+    d, along = line_distance(img.shape, *ends, img.device)
+    inside = (along >= 0) & (along <= 1)
+    img += torch.where(inside, STREAK_SNR * sigma * torch.exp(
+        -0.5 * (d / TRAIL_SIGMA) ** 2), 0.0)
+    streak = inside & (d < TRAIL_SIGMA)
+    del d, along, inside
+
+    def passes(im, ex, rows, cols):
+        m, n, snr, lines = satdet.detect_trails(
+            im, ex, p, seam_rows=rows, seam_cols=cols, want_lines=True)
+        sm, sn, ssnr = satdet.detect_trail_segments(
+            im, ex, p, seam_rows=rows, seam_cols=cols, exclude_lines=lines)
+        return m, int(n), snr, sm, int(sn), ssnr
+
+    passes(img, excl, srows, scols)                 # warm-up
+    (m, n, snr, lines), full_ms = synced(lambda: satdet.detect_trails(
+        img, excl, p, seam_rows=srows, seam_cols=scols, want_lines=True))
+    (sm, sn, ssnr), seg_ms = synced(lambda: satdet.detect_trail_segments(
+        img, excl, p, seam_rows=srows, seam_cols=scols,
+        exclude_lines=lines))
+    n, sn = int(n), int(sn)
+    cover = float((sm & streak).sum()) / float(streak.sum())
+    print(f"segment mode on phase 3's frame alone: full frame {n0} "
+          f"trail(s), segments {base} new (the trail's ghost lines, a "
+          f"fault of the reference) [{card}]")
+    print(f"segment mode on phase 3's frame + a {STREAK_SNR:g} sigma/px "
+          f"streak ({ends[0]} -> {ends[1]} px, sigma {sigma:.2f} e-): "
+          f"full frame {n} trail(s) (snr "
+          f"{[round(float(v), 2) for v in snr if v > 0]}, "
+          f"{int(m.sum())} px masked) in {full_ms:.1f} ms; segments {sn} "
+          f"new (snr {[round(float(v), 2) for v in ssnr if v > 0]}, "
+          f"{int(sm.sum())} px masked, the streak's core covered "
+          f"{cover:.3f}) in {seg_ms:.1f} ms [{card}]")
+    if n0 != 1 or n != 1 or sn != base + 1:
+        raise AssertionError(
+            f"segment mode: {n0} full-frame trail(s) on the frame and {n} "
+            f"with the streak, {base} segments on the frame and {sn} with "
+            "the streak: the full frame must count its trail once and the "
+            "streak add one segment")
+    if cover < 0.8:
+        raise AssertionError(f"segment mode: the streak's core covered "
+                             f"{cover:.3f}")
+    # card against CPU on the cut that holds the streak
+    r0, c1 = H // 2, W // 2
+    cut = (slice(r0, H), slice(0, c1))
+    rows = tuple(r - r0 for r in srows if r0 <= r < H)
+    cols = tuple(c for c in scols if c < c1)
+    got = passes(img[cut].contiguous(), excl[cut].contiguous(), rows, cols)
+    t0 = time.time()
+    want = passes(img[cut].cpu(), excl[cut].cpu(), rows, cols)
+    cpu_s = time.time() - t0
+    if (got[1], got[4]) != (want[1], want[4]):
+        raise AssertionError(f"segment mode on the cut: counts "
+                             f"{(got[1], got[4])} on the card, "
+                             f"{(want[1], want[4])} on the CPU")
+    flips = [NP.mask_edge_flips(got[i].cpu().numpy(), want[i].numpy())
+             for i in (0, 3)]
+    print(f"segment mode card vs CPU on the {H - r0}x{c1} cut: counts "
+          f"{(got[1], got[4])} equal, masks equal but {flips} pixels on "
+          f"the masks' edges; CPU {cpu_s:.1f} s [{card}]")
+
+
+def vetnet_phase(card, night, unet, t4):
+    """Phase 9, third part: the real/bogus CNN trained on the card, then
+    a fifth visit of phase 7's field (its own noise and cosmics, moved
+    FIFTH_SHIFT px, NTRANS new transients) file to file through a
+    Pipeline with both networks, against the co-add of phase 8: ASTA-P
+    and the U-Net's SATELLITE bits.  Where the U-Net's mask sends the
+    frame to QC red through S-ELOSTD (a fault of the reference), the
+    same raw frame runs again with the real/bogus network alone for its
+    gates: MC-P, the transients, CLASS_REAL.  The maps and candidates
+    the driver scores are kept for the card-CPU check.  Returns them
+    and the transients' truth."""
+    from blackbox_tpu_torch.io.fits import read_fits
+    from blackbox_tpu_torch.core import maskbits
+    from blackbox_tpu_torch.io.rice import read_rice
+    from blackbox_tpu_torch.models import vetnet
+    from blackbox_tpu_torch.ops import labeling
+    from blackbox_tpu_torch.pipeline import driver
+    from blackbox_tpu_torch.synth.device import make_science_device
+
+    t0 = time.time()
+    vparams = vetnet.train(device="cuda", log_every=399)
+    torch.cuda.synchronize()
+    print(f"real/bogus CNN trained on the card: 400 steps of 32 synthetic "
+          f"32² stamp stacks in {time.time() - t0:.1f} s [{card}]")
+    pipe0 = night["pipe"]
+    geom = pipe0.geom
+    H, W = geom.red_shape
+    rng = np.random.default_rng(9)
+    edge = min(300, H // 6)
+    tx = np.floor(rng.uniform(edge, W - edge, NTRANS))
+    ty = np.floor(rng.uniform(edge, H - edge, NTRANS))
+    (x5, y5, f5), pointing5 = visit_stars(night["truth"], *FIFTH_SHIFT, 0.0,
+                                          NIGHT_SCALE, geom)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                     device="cuda")
+    stars5 = (torch.cat([x5, as_t(tx)]), torch.cat([y5, as_t(ty)]),
+              torch.cat([f5, torch.full((NTRANS,), 3.0e4, device="cuda")]))
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[2] + 2)
+    stacks = make_science_device(gen, geom, ncosmics=800, trail=False,
+                                 stars=stars5)[:3]
+    p5 = night["write"](stacks, "object", 10, EXPTIME,
+                        *pointing5(night["wcs1"]))
+    del stacks, stars5
+    k1 = []
+
+    def run(force=False, **nets):
+        """The fifth visit through a Pipeline with ``nets``; the maps and
+        candidates it scores are kept.  K1 runs once for the catalog,
+        once for the U-Net's area filter and once for the subtraction's
+        transients."""
+        pipe = driver.Pipeline(night["tree"], "ML1", night["settings"],
+                               pipe0.ctx, ref_catalog=night["query"], **nets)
+        seen = []
+        score = vetnet.score_transients
+
+        def keep(*args):
+            seen.append(args[1:])
+            return score(*args)
+
+        before = labeling.label_propagate.launches
+        vetnet.score_transients = keep
+        try:
+            r = pipe.process_file(p5, force=force)
+        finally:
+            vetnet.score_transients = score
+        if r.status != "reduced":
+            raise AssertionError(f"fifth visit: {r.status} {r.error}")
+        want = (1 + ("trailnet_params" in nets)
+                + (r.header.get("TRANS-P") is True))
+        k1.append(labeling.label_propagate.launches - before)
+        if k1[-1] != want:
+            raise AssertionError(f"fifth visit: label_propagate {k1[-1]} "
+                                 f"launches, {want} expected")
+        return r, seen
+
+    r1, seen = run(trailnet_params=unet, vetnet_params=vparams)
+    h1 = r1.header
+    mask_p = [q for q in r1.products if q.endswith("_mask.fits.fz")][0]
+    nsat = int(((read_rice(mask_p)[0] & maskbits.SATELLITE) != 0).sum())
+    if h1.get("ASTA-P") is not True or nsat == 0:
+        raise AssertionError(f"fifth visit: ASTA-P {h1.get('ASTA-P')}, "
+                             f"{nsat} SATELLITE pixels")
+    reds = [str(h1[k]) for k in h1.keys() if k.startswith("QCRED")]
+    print(f"fifth visit with both networks: ASTA-P true, {nsat} SATELLITE "
+          f"pixels in the published mask, QC {r1.qc_flag} "
+          f"({', '.join(reds) or 'no red keys'}), NOBJECTS "
+          f"{h1.get('NOBJECTS')}, S-ELOSTD {h1.get('S-ELOSTD')} [{card}]")
+    r5 = r1
+    if r1.qc_flag == "red":
+        # the U-Net's mask cuts stars into few-pixel fragments whose
+        # moments the reference floors (ROADMAP Queue 3): S-ELOSTD sends
+        # the frame to QC red and dummy catalogs, so the real/bogus gates
+        # are taken on the same raw frame without the U-Net
+        if reds != ["S-ELOSTD"]:
+            raise AssertionError(f"fifth visit: QC red through {reds}")
+        r5, seen = run(force=True, vetnet_params=vparams)
+    check_visit(r5, "fifth visit, real/bogus network", card,
+                keys=("S-P", "A-P", "PC-P", "TRANS-P", "MC-P"))
+    h5 = r5.header
+    trans = [q for q in r5.products if q.endswith("_red_trans.fits")][0]
+    cols = next(d for d, _ in read_fits(trans) if isinstance(d, dict))
+    found = check_night_transients(cols, tx, ty, card)
+    prob = np.asarray(cols["CLASS_REAL"], np.float64)
+    if not (np.isfinite(prob).all() and ((prob >= 0) & (prob <= 1)).all()):
+        raise AssertionError("CLASS_REAL not finite in [0, 1]")
+    x = np.asarray(cols["X_PEAK"], np.float64) - 1
+    y = np.asarray(cols["Y_PEAK"], np.float64) - 1
+    dd = np.hypot(x[:, None] - tx[None, :], y[:, None] - ty[None, :])
+    real = dd.min(1) < 2.0
+    (maps,) = seen
+    cpu = vetnet.score_transients(
+        vparams, *(a.cpu() if isinstance(a, torch.Tensor) else a
+                   for a in maps))
+    err = float(np.abs(cpu.numpy() - np.asarray(cols["CLASS_REAL"])).max())
+    if err > 1e-4:
+        raise AssertionError(f"score_transients: card and CPU differ by "
+                             f"{err}")
+    t = {k: v * 1e3 for k, v in r5.timing.items()}
+    t1 = {k: v * 1e3 for k, v in r1.timing.items()}
+    t4 = {k: v * 1e3 for k, v in t4.items()}
+
+    def dev_host(tt):
+        dev = (tt.get(driver.SPAN_CALIB, 0.0)
+               + tt.get(driver.SPAN_SUBTRACT, 0.0))
+        return dev, tt["wall"] - dev
+    d5, h5_ms = dev_host(t)
+    d4, h4_ms = dev_host(t4)
+    print(f"fifth visit: calibrate+extract {t1[driver.SPAN_CALIB]:.1f} ms "
+          f"with the U-Net, {t[driver.SPAN_CALIB]:.1f} ms without it, "
+          f"{t4[driver.SPAN_CALIB]:.1f} ms on the fourth visit [{card}]")
+    print(f"fifth visit{' (without the U-Net)' if r5 is not r1 else ''}: "
+          f"MC-P true, MC-MED "
+          f"{h5['MC-MED']}, T-NTRANS {h5['T-NTRANS']}, {found} of {NTRANS} "
+          f"transients; CLASS_REAL finite in [0, 1] on {len(prob)} rows, "
+          f"median P(real) of the injected transients "
+          f"{float(np.median(prob[real])) if real.any() else float('nan'):.4f}"
+          f" ({int(real.sum())} rows), of the others "
+          f"{float(np.median(prob[~real])) if (~real).any() else float('nan'):.4f}"
+          f"; score_transients card vs CPU max |diff| {err:.2e}; wall "
+          f"{t['wall']:.1f} ms, device {d5:.1f} ms, host {h5_ms:.1f} ms "
+          f"(the fourth visit, no networks: wall {t4['wall']:.1f}, device "
+          f"{d4:.1f}, host {h4_ms:.1f}) [{card}]")
+    return maps, (tx, ty), sum(k1)
+
+
+def chart_check(card, maps, trans):
+    """Phase 9, last part: orient_data's Lanczos route on a cut-out
+    around one transient of the fifth visit, card against CPU, without
+    rendering."""
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    from blackbox_tpu_torch.report.finding_chart import orient_data
+    sci = maps[0]
+    x, y = int(trans[0][0]), int(trans[1][0])
+    n = 201
+    cut = sci[y - n // 2:y + n // 2 + 1, x - n // 2:x + n // 2 + 1]
+    cut = cut.cpu().numpy().astype(np.float32)
+    wcs = TanWCS.simple(150.0, -30.0, 0.5642, (n, n), rot_deg=23.7)
+    orient_data(cut, wcs, device="cuda")            # warm-up
+    got, ms = synced(lambda: orient_data(cut, wcs, device="cuda"))
+    want = orient_data(cut, wcs, device="cpu")
+    err = float(np.abs(got - want).max())
+    if err > 1e-5 * float(np.abs(cut).max()):
+        raise AssertionError(f"orient_data: card and CPU differ by {err}")
+    print(f"finding chart: orient_data (Lanczos3, 23.7 deg) of a {n}x{n} "
+          f"cut-out around the transient at ({x}, {y}) on the card "
+          f"{ms:.2f} ms, against the CPU max |diff| {err:.3g} e- "
+          f"[{card}]")
+
+
+def check_k1_unet(card, prob):
+    """K1 at the U-Net's area filter shape: the binned mask's 64 steps,
+    bit-exact against the plain version (outside the counted run)."""
+    from blackbox_tpu_torch.ops import labeling
+    lab = label_start(prob > 0.5)
+    Hb, Wb = lab.shape
+    err = max_abs_err(labeling.label_propagate(lab, 64),
+                      labeling._label_propagate_plain(lab, 64))
+    ms = cuda_ms(lambda: labeling.label_propagate(lab, 64))
+    plain = cuda_ms(lambda: labeling._label_propagate_plain(lab, 64),
+                    reps=1)
+    nfg = int((lab < Hb * Wb + 2).sum())
+    bnd = bound(8.0 * Hb * Wb, i32_ops=8.0 * 64 * nfg)
+    print(f"K1 label_propagate U-Net mask {Hb}x{Wb} 64 steps "
+          f"({nfg / (Hb * Wb):.6f} of pixels set): bit-exact, kernel "
+          f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms "
+          f"({bnd[1]}) [{card}]")
+    return dict(unet_ms=ms, unet_plain_ms=plain, unet_bound_ms=bnd[0],
+                unet_shape=[Hb, Wb], unet_err=err)
 
 
 def main() -> int:
@@ -1837,7 +2272,7 @@ def main() -> int:
 
     # phase 3: raw -> catalog
     zero_counts()
-    reduce_phase(ctx, card, mbias, mflat, xtalk)
+    frame = reduce_phase(ctx, card, mbias, mflat, xtalk)
     c3 = read_counts("raw -> catalog", card, ("label_propagate",
                                               "median_filter",
                                               "gather_slot_windows"))
@@ -1893,14 +2328,44 @@ def main() -> int:
     import tempfile
     with tempfile.TemporaryDirectory() as root:
         c7, night = night_phase(ctx, card, root)
-        c8 = coadd_phase(card, night)
-        del night
+        c8, t4 = coadd_phase(card, night)
+        torch.cuda.empty_cache()
+
+        # phase 9: the networks and segment mode at full width, then a
+        # fifth visit through the driver with both networks
+        t9 = time.time()
+        zero_counts()
+        unet, prob = unet_phase(card, *frame)
+        segment_phase(card, ctx, *frame)
+        del frame
+        torch.cuda.empty_cache()
+        maps, trans, k1_visit = vetnet_phase(card, night, unet, t4)
+        torch.cuda.synchronize()
+        c9 = read_counts("networks and segment mode", card,
+                         ("label_propagate", "median_filter",
+                          "gather_slot_windows", "fft_cols_split"))
+        if (c9["label_propagate"] != 2 + k1_visit
+                or c9["fft_cols_split"] != 6):
+            raise AssertionError(
+                f"phase 9: label_propagate {c9['label_propagate']} (two "
+                f"U-Net passes and the fifth visit's {k1_visit}), "
+                f"fft_cols_split {c9['fft_cols_split']} (one subtraction: "
+                f"6)")
+        chart_check(card, maps, trans)
+        del maps, night
+        k1_unet = check_k1_unet(card, prob)
+        del prob
+        print(f"phase 9: {time.time() - t9:.1f} s [{card}]")
 
     for r in results:
         r["launches"] = (c3[r["name"]] + c4[r["name"]] + c5[r["name"]]
-                         + c7[r["name"]] + c8[r["name"]])
+                         + c7[r["name"]] + c8[r["name"]] + c9[r["name"]])
         r["file_to_file_launches"] = c7[r["name"]]
         r["coadd_phase_launches"] = c8[r["name"]]
+        r["networks_phase_launches"] = c9[r["name"]]
+        if r["name"] == "label_propagate":
+            r.update(k1_unet)
+            r["max_abs_err"] = max(r["max_abs_err"], r.pop("unet_err"))
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all [{card}]")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

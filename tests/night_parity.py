@@ -21,6 +21,28 @@ import numpy as np
 SCORR_RTOL = 0.05
 SCORR_ATOL = 3e-3
 
+
+def mask_edge_flips(got, want) -> int:
+    """The pixels where two rasterised trail masks differ, all of which
+    must lie on ``want``'s edge (a pixel whose 3x3 neighbourhood in
+    ``want`` holds both values): the trail detector rasterises each line
+    by a distance threshold from cos θ and sin θ, and XLA's, PyTorch's
+    CPU and CUDA's float32 cos and sin differ by an ulp at some grid
+    angles, which moves a pixel lying at the threshold.  Returns the
+    number that differ."""
+    got = np.asarray(got, bool)
+    want = np.asarray(want, bool)
+    diff = got != want
+    if not diff.any():
+        return 0
+    p = np.pad(want, 1, mode="edge")
+    H, W = want.shape
+    win = [p[dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3)]
+    edge = np.any(win, axis=0) & ~np.all(win, axis=0)
+    bad = diff & ~edge
+    assert not bad.any(), f"{int(bad.sum())} mask pixels differ off the edge"
+    return int(diff.sum())
+
 def peak_ties(got_xy, want_xy, scorr):
     """Indices of the transients whose peak pixels differ by a near tie.
 
@@ -420,6 +442,28 @@ def lost_pointing_visit(root, stars):
                       nstars=0, ncosmics=4, trail=False, nsat=0,
                       sky_e=300.0, ra_deg=RA0 + LOST[0],
                       dec_deg=DEC0 + LOST[1], stars=stars, flat=flat)
+    return path
+
+
+def net_visit(root, stars):
+    """A further visit of ``tiny_night``'s field at 23:55, pointed as the
+    first, with the transient where the second has it (``stars`` plus
+    TRANS, its night's flat response), written into the raw tree under
+    ``root`` for the networks' run.  Returns its path."""
+    from blackbox_tpu_torch.astro.time import iso2mjd
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.orchestration.paths import DataTree
+    from blackbox_tpu_torch.synth.generator import _vignette_flat
+    from blackbox_tpu_torch.synth.observation import write_observation
+    flat = _vignette_flat(TINY, np.random.default_rng(11))
+    path = os.path.join(DataTree(root, "ML1").raw_dir(DATE),
+                        f"ML1_{DATE}_235500.fits")
+    write_observation(path, TINY, np.random.default_rng(8), "object",
+                      mjd_start=iso2mjd("2026-03-01T23:55:00.000"),
+                      nstars=0, ncosmics=4, trail=False, nsat=0,
+                      sky_e=300.0, ra_deg=RA0, dec_deg=DEC0,
+                      stars=np.concatenate([stars, [[*TRANS, 3.0]]]),
+                      flat=flat)
     return path
 
 

@@ -188,10 +188,25 @@ def test_requires_a_target():
                                                       "ML1"])[0] == 2
 
 
-def test_finding_chart_not_ported():
-    with pytest.raises(NotImplementedError, match="finding_chart"):
-        main(["--finding_chart", "150.0", "-30.0", "x_red.fits"],
-             device="cpu")
+def test_finding_chart_not_ported(tmp_path, monkeypatch):
+    """--finding_chart is ported: it renders a chart of a product (held
+    to the JAX package by tests/test_torch_finding_chart.py)."""
+    pytest.importorskip("matplotlib")
+    from blackbox_tpu_torch.astro.wcs import TanWCS
+    from blackbox_tpu_torch.io.fits import Header, write_image
+    img = np.random.default_rng(0).normal(100, 3, (128, 128)).astype(
+        np.float32)
+    wcs = TanWCS.simple(150.0, -30.0, 1.0, img.shape, rot_deg=8.0)
+    h = Header()
+    wcs.to_header(h)
+    p = str(tmp_path / "x_red.fits")
+    write_image(p, img, h)
+    ra, dec = wcs.pix2sky(64.0, 64.0)
+    monkeypatch.chdir(tmp_path)
+    assert main(["--finding_chart", str(float(ra)), str(float(dec)), p,
+                 "--size_arcmin", "1", "--output_format", "png"],
+                device="cpu") == 0
+    assert len(list(tmp_path.glob("x_red_*_fc.png"))) == 1
 
 
 def test_device_batch_not_ported(tmp_path):

@@ -994,3 +994,80 @@ def test_blocked_mini_std_against_full_res_on_card(dev):
     inputs, wcs = _coadd_inputs(True)
     mini = coadd_field_blocked(inputs, wcs, shape, **kw)
     _coadd_close(mini, full, "mini vs full", flips=1e-3)
+
+
+# ------------------------------------------ the networks and segment mode
+
+@pytest.mark.parametrize("net", ["trailnet", "vetnet"])
+def test_network_forward_card_matches_cpu(dev, net):
+    """Both networks' logits on the card (cuDNN, TF32 off) against the
+    CPU on the same parameters, at 1e-4 of their scale."""
+    from blackbox_tpu_torch.models import trailnet, vetnet
+    g = torch.Generator().manual_seed(3)
+    if net == "trailnet":
+        model = trailnet.TrailUNet()
+        model.load_state_dict(trailnet.init_params(g))
+        x = torch.randn((4, 256, 256), generator=g)
+    else:
+        model = vetnet.VetNet()
+        model.load_state_dict(vetnet.init_params(g))
+        x = torch.randn((64, 32, 32, 4), generator=g)
+    with torch.no_grad():
+        cpu = model.eval()(x)
+        card = model.to(dev)(x.to(dev)).cpu()
+    assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+
+def test_segment_trails_card_matches_cpu(dev):
+    """segment_trails on the card (K1 in the area filter) against the
+    CPU: the binned masks equal outside |p - 0.5| <= 1e-4, n_pix within
+    that band's count."""
+    from blackbox_tpu_torch.models import trailnet
+    from blackbox_tpu_torch.ops import labeling
+    g = torch.Generator().manual_seed(5)
+    params = trailnet.init_params(g)
+    params["Conv_0.weight"] *= 40.0
+    H = W = 1536
+    img = 100 + 3 * torch.randn((H, W), generator=g)
+    yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    img += 40 * torch.exp(-0.5 * ((0.6 * yy - 0.8 * xx + 200) / 1.5) ** 2)
+    prob = trailnet.trail_probability(params, img)
+    params["Conv_0.bias"] -= float(torch.quantile(torch.logit(
+        prob.double()).reshape(-1), 0.95))
+    prob = trailnet.trail_probability(params, img)
+    band = (prob - 0.5).abs() <= 1e-4
+    before = labeling.label_propagate.launches
+    m_card, n_card = trailnet.segment_trails(params, img.to(dev))
+    assert labeling.label_propagate.launches == before + 1
+    m_cpu, n_cpu = trailnet.segment_trails(params, img)
+    assert abs(int(n_card) - int(n_cpu)) <= int(band.sum())
+    inband = band.repeat_interleave(4, 0).repeat_interleave(4, 1)
+    assert bool((m_card.cpu() == m_cpu)[~inband].all())
+    assert int(n_cpu) > 0
+
+
+def test_trail_segments_card_matches_cpu(dev):
+    """detect_trails(want_lines=True) and the seeded segment pass on the
+    card against the CPU: counts equal, masks equal but for pixels at
+    the rasterisation threshold on the mask's edge."""
+    import night_parity as NP
+    from blackbox_tpu_torch.ops import satdet
+    g = torch.Generator().manual_seed(8)
+    H = W = 2048
+    img = torch.randn((H, W), generator=g)
+    for x in range(W):                               # a full trail
+        img[int(100 + 0.7 * x) % H, x] += 10.0
+    for x in range(300, 900):                        # a quarter streak
+        img[int(1500 + 0.2 * (x - 300)), x] += 8.0
+    p = satdet.SatDetParams(bin_factor=4)
+    out = {}
+    for d in ("cpu", dev):
+        m, n, _, lines = satdet.detect_trails(img.to(d), None, p,
+                                              want_lines=True)
+        sm, sn, _ = satdet.detect_trail_segments(img.to(d), None, p,
+                                                 exclude_lines=lines)
+        out[str(d)] = (m.cpu(), int(n), sm.cpu(), int(sn))
+    (m0, n0, s0, k0), (m1, n1, s1, k1) = out["cpu"], out[str(dev)]
+    assert (n0, k0) == (n1, k1) and n0 == 1
+    NP.mask_edge_flips(m1.numpy(), m0.numpy())
+    NP.mask_edge_flips(s1.numpy(), s0.numpy())

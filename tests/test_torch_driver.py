@@ -84,23 +84,28 @@ def nights(tmp_path_factory):
     jctx = _ctx(js)
     out = {"files": [os.path.relpath(f, raw_root) for f in files],
            "stars": stars}
-    kw = dict(ref_catalog=query, sso_elements=_sso_elements(files[-1]),
+    kw = dict(sso_elements=_sso_elements(files[-1]),
               blind_index=NP.quad_index(stars, TINY.red_shape))
+    s = ReductionSettings(geometry=TINY, pixscale=NP.PIXSCALE,
+                          create_ref=True)
+    ctx = ReduceContext.from_reference(jctx)
+    assert ctx == NP.tiny_ctx(s)
+
+    def make(side, root, **extra):
+        if side == "jax":
+            return JPipeline(JTree(root, "ML1"), "ML1", js, jctx,
+                             ref_catalog=query, **extra)
+        return tdriver.Pipeline(DataTree(root, "ML1"), "ML1", s, ctx,
+                                ref_catalog=query, device="cpu", **extra)
+
     for side in ("jax", "port"):
         root = os.path.join(base, side)
         shutil.copytree(raw_root, root)
-        if side == "jax":
-            pipe = JPipeline(JTree(root, "ML1"), "ML1", js, jctx, **kw)
-        else:
-            s = ReductionSettings(geometry=TINY, pixscale=NP.PIXSCALE,
-                                  create_ref=True)
-            ctx = ReduceContext.from_reference(jctx)
-            assert ctx == NP.tiny_ctx(s)
-            pipe = tdriver.Pipeline(DataTree(root, "ML1"), "ML1", s, ctx,
-                                    device="cpu", **kw)
+        pipe = make(side, root, **kw)
         out[side] = ([pipe.process_file(os.path.join(root, f))
                       for f in out["files"]], root)
         out[side + "_pipe"] = pipe
+    out["make"] = make
     return out
 
 
@@ -304,24 +309,31 @@ def test_timing_spans(nights):
         assert (tdriver.SPAN_SUBTRACT in t) == (i == 7)
 
 
+# the network branches the driver refused until they were ported: each
+# is now taken as the JAX driver takes it (attribute, value it must end
+# with); a sat_model_path that cannot be read is logged and leaves the
+# U-Net off, as in the JAX package
 UNPORTED = {
-    "trailnet_params": ("trailnet", dict(trailnet_params={})),
-    "sat_model_path": ("trailnet", dict(settings={
-        "use_unet_sat": True, "sat_model_path": "asta.h5"})),
-    "vetnet_params": ("vetnet", dict(vetnet_params={})),
+    "trailnet_params": (dict(trailnet_params={"w": 1}), "trailnet_params",
+                        {"w": 1}),
+    "sat_model_path": (dict(settings={
+        "use_unet_sat": True, "sat_model_path": "asta.h5"}),
+        "trailnet_params", None),
+    "vetnet_params": (dict(vetnet_params={"w": 2}), "vetnet_params",
+                      {"w": 2}),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_branches_raise(name, tmp_path):
-    module, kw = UNPORTED[name]
+    kw, attr, want = UNPORTED[name]
     kw = dict(kw)
     s = ReductionSettings(geometry=TINY)
     for k, v in kw.pop("settings", {}).items():
         setattr(s, k, v)
-    with pytest.raises(NotImplementedError, match=module):
-        tdriver.Pipeline(DataTree(str(tmp_path), "ML1"), "ML1", s,
-                         device="cpu", **kw)
+    pipe = tdriver.Pipeline(DataTree(str(tmp_path), "ML1"), "ML1", s,
+                            device="cpu", **kw)
+    assert getattr(pipe, attr) == want
 
 
 def test_device_override_raises(tmp_path):
@@ -428,3 +440,118 @@ def test_lost_pointing_blind_solve(nights):
                                for v in nights["stars"][:, :2].T))
     d = np.hypot((ra - ra0) * np.cos(np.radians(NP.DEC0)), dec - dec0)
     assert np.median(d) * 3600 < 1.0
+
+
+# ------------------------------------------------ the networks' branches
+
+@pytest.fixture(scope="module")
+def net_visit(nights):
+    """A further visit of the night's field with the transient, after
+    the night, through both packages' pipelines with the trail U-Net and
+    the real/bogus network: the JAX package's flax parameters (its
+    init_params, the U-Net's output layer scaled and shifted so that a
+    few per cent of the binned frame passes the threshold) carried
+    across with from_jax_params."""
+    import jax
+    from test_torch_models import _sharp_params
+    from blackbox_tpu.models import vetnet as jvet
+    from blackbox_tpu_torch.io.fits import read_fits
+    from blackbox_tpu_torch.models import vetnet as tvet
+    from blackbox_tpu_torch.models.trailnet import from_jax_params
+    runs = {}
+    for side, mod in (("jax", jvet), ("port", tvet)):
+        root = nights[side][1]
+        path = NP.net_visit(root, nights["stars"])
+        if side == "jax":
+            raw = read_fits(path)[0][0].astype(np.float32)
+            chan, _, _ = TINY.split_raw(raw)
+            unet = _sharp_params(TINY.assemble(chan), key=2, frac=0.08)
+            vet = jvet.init_params(jax.random.PRNGKey(4))
+            runs["vet_params"] = vet
+        else:
+            unet, vet = from_jax_params(unet), from_jax_params(vet)
+        pipe = nights["make"](side, root, trailnet_params=unet,
+                              vetnet_params=vet)
+        # the maps and candidates the driver scores, kept
+        seen = []
+        score = mod.score_transients
+
+        def keep(*args, score=score, seen=seen):
+            seen.append([_host_array(a) for a in args[1:]])
+            return score(*args)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(mod, "score_transients", keep)
+            runs[side] = ([pipe.process_file(path)], root)
+        runs[side + "_scored"] = seen
+    return runs
+
+
+def _host_array(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def test_networks_flags_and_masks(net_visit):
+    """ASTA-P and MC-P set in both, the same flags, keywords and
+    masks, SATELLITE bits included, with the U-Net's mask in them."""
+    from blackbox_tpu_torch.core import maskbits
+    from blackbox_tpu_torch.io.rice import read_rice
+    a, b = net_visit["port"], net_visit["jax"]
+    NP.check_statuses(a, b)
+    for r in (a[0][0], b[0][0]):
+        assert r.header["ASTA-P"] is True and r.header["MC-P"] is True
+        assert r.header["TRANS-P"] is True
+    assert a[0][0].header["MC-MED"] == b[0][0].header["MC-MED"]
+    NP.check_headers(a, b, NP.overscan_level(b))
+    (pb, pa), = [p for p in NP.pairs(a, b, "_mask.fits.fz")
+                 if "235500" in p[0]]
+    x, _ = read_rice(pa)
+    y, _ = read_rice(pb)
+    assert np.array_equal(x, y)
+    assert int(np.sum((x & maskbits.SATELLITE) != 0)) > 0
+
+
+def test_networks_class_real(net_visit):
+    """CLASS_REAL, the real/bogus column (the only one the network
+    adds): the port's column agrees to 1e-5 with the JAX package's
+    network on the maps and candidates the port's driver scored.
+    Between the two drivers the maps themselves differ at the
+    subtraction's parity tolerances (Scorr to 5%), so there the column
+    agrees to 1e-3."""
+    import jax.numpy as jnp
+    from blackbox_tpu.models.vetnet import score_transients
+    a, b = net_visit["port"], net_visit["jax"]
+    (tb, ta), = [p for p in NP.pairs(a, b, "_red_trans.fits")
+                 if "235500" in p[0]]
+    ca, cb = NP.table(ta), NP.table(tb)
+    assert list(ca) == list(cb) and "CLASS_REAL" in ca
+    x, y = np.asarray(ca["CLASS_REAL"]), np.asarray(cb["CLASS_REAL"])
+    assert len(x) >= 1 and np.all((x >= 0) & (x <= 1))
+    (maps,) = net_visit["port_scored"]
+    want = score_transients(net_visit["vet_params"],
+                            *(jnp.asarray(m) for m in maps))
+    np.testing.assert_allclose(x, np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(x, y, rtol=0, atol=1e-3)
+
+
+def test_sat_model_path_keras_route(tmp_path):
+    """A sat_model_path ending in .h5 goes through
+    convert_keras_weights, as in the JAX package; any other path
+    through load_params."""
+    pytest.importorskip("h5py")
+    import jax
+    from test_torch_models import _keras_file
+    from blackbox_tpu.models.trailnet import init_params as jinit
+    from blackbox_tpu_torch.models import trailnet as TT
+    h5p = _keras_file(str(tmp_path / "asta.h5"),
+                      jinit(jax.random.PRNGKey(1), tile=32))
+    pt = str(tmp_path / "unet.pt")
+    TT.save_params(pt, TT.init_params(torch.Generator().manual_seed(0)))
+    for path, want in ((h5p, TT.convert_keras_weights(h5p)),
+                       (pt, TT.load_params(pt))):
+        s = ReductionSettings(geometry=TINY)
+        s.use_unet_sat, s.sat_model_path = True, path
+        got = tdriver.Pipeline(DataTree(str(tmp_path), "ML1"), "ML1", s,
+                               device="cpu").trailnet_params
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want)

@@ -89,6 +89,14 @@ SLICE_MODULES = [
     "blackbox_tpu_torch.orchestration.scheduler",
     "blackbox_tpu_torch.report.obslog",
     "blackbox_tpu_torch.__main__",
+    "blackbox_tpu_torch.models",
+    "blackbox_tpu_torch.models.trailnet",
+    "blackbox_tpu_torch.models.vetnet",
+    "blackbox_tpu_torch.report.finding_chart",
+    "blackbox_tpu_torch.orchestration.cluster",
+    "blackbox_tpu_torch.orchestration.pubsub",
+    "blackbox_tpu_torch.io.fakegcs",
+    "blackbox_tpu_torch.utils.watchdog",
 ]
 
 # Host modules copied from blackbox_tpu, by dotted path under each
@@ -142,9 +150,17 @@ HOST_COPIES = {
     "report.obslog": {},
     "__main__": {
         "build_parser": "the program's name and description",
-        "main": "takes the device the pixel work runs on; "
-                "--finding_chart raises NotImplementedError naming "
-                "report/finding_chart.py, not ported yet"},
+        "main": "takes the device the pixel work runs on and hands it "
+                "to the pipeline, the co-add and the finding chart"},
+    "orchestration.cluster": {
+        "sbatch_script": "a job runs the port's command line",
+        "run_night_chain": "the night's jobs run the port's command line"},
+    "orchestration.pubsub": {}, "io.fakegcs": {}, "utils.watchdog": {},
+    "report.finding_chart": {
+        "orient_data": "resamples with the port's lanczos_resample on a "
+                       "given device",
+        "finding_chart": "passes the device to orient_data",
+        "chart_from_product": "passes the device to finding_chart"},
 }
 
 # single host functions copied into modules of the port that are not
@@ -160,6 +176,9 @@ HOST_FUNCTIONS = [
     ("pipeline.buildref", "BuildRefSettings"),
     ("pipeline.buildref", "select_images"),
     ("pipeline.buildref", "choose_clip_params"),
+    ("models.trailnet", "TrailNetConfig"),
+    ("models.trailnet", "synth_batch"), ("models.trailnet", "_layer_order"),
+    ("models.vetnet", "_gauss"), ("models.vetnet", "synth_batch"),
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

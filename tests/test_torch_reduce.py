@@ -152,19 +152,22 @@ def _check_reduce(jfn, tfn, ctx, seed):
 
 
 def test_reduce_refuses_unported_stages():
-    """The stage the port leaves out (the tiled trail segments) raises,
-    and so do non-linearity coefficients that are not (C, D); the
-    correction itself is held to the JAX package by
+    """Every stage is ported now: the tiled trail segments run (held to
+    the JAX package by test_torch_satdet.py::
+    test_calibrate_detector_with_segments_matches_jax) and add to the
+    full-frame count; non-linearity coefficients that are not (C, D)
+    still raise; the correction itself is held to the JAX package by
     test_torch_calib.py::test_calibrate_detector_nonlin_matches_jax."""
     ctx = ReduceContext.from_defaults(TINY)
     gen = torch.Generator().manual_seed(0)
     from blackbox_tpu_torch.synth.device import make_science_device
     chan, osv, osh, _ = make_science_device(gen, TINY, nstars=5,
                                             ncosmics=2, nsat=0)
-    fn = make_reduce_fn(dataclasses.replace(ctx, detect_sat_segments=True),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="detect_sat_segments"):
-        fn(chan, osv, osh, None, None, None, None)
+    seg = make_reduce_fn(dataclasses.replace(ctx, detect_sat_segments=True),
+                         device="cpu")(chan, osv, osh, None, None, None, None)
+    full = make_reduce_fn(ctx, device="cpu")(chan, osv, osh, None, None,
+                                             None, None)
+    assert int(seg["stats"]["nsats"]) >= int(full["stats"]["nsats"])
     from blackbox_tpu_torch.pipeline.reduce import calibrate_detector
     with pytest.raises(ValueError, match="nonlin_correct"):
         calibrate_detector(dataclasses.replace(ctx, correct_nonlin=True),
