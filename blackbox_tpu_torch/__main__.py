@@ -7,10 +7,10 @@
     python -m blackbox_tpu_torch --obslog 20260301
     python -m blackbox_tpu_torch --buildref 42 --data_root /data
 
-The flags are the JAX package's.  The pixel work runs on the card;
-``main(argv, device="cpu")`` runs it on the CPU (the tests do).  Not
-ported yet: ``device_batch > 1`` in day mode (``parallel/``), refused
-with ``NotImplementedError``.
+The flags are the JAX package's.  The pixel work runs on the card
+(every card, in chunks of ``device_batch`` frames, where the settings
+ask for ``device_batch > 1`` in day mode); ``main(argv,
+device="cpu")`` runs it on the CPU (the tests do).
 """
 
 from __future__ import annotations

@@ -36,19 +36,30 @@ def background_mesh(image, mask, boxsize: int, nsigma: float = 3.0,
     return med, std
 
 
-def box_stats(image, mask, boxsize: int, nsigma: float = 3.0):
-    """Raw per-box clipped median/STD (NaN where a box is fully masked).
-
-    Large boxes use every 8th (or 4th) row, like the JAX package.
-    """
-    H, W = image.shape
-    ny, nx = H // boxsize, W // boxsize
+def box_rows(H: int, boxsize: int):
+    """(rows, step): the rows the box statistics read.  Large boxes use
+    every 8th (or 4th) row, like the JAX package."""
     step = 8 if boxsize >= 128 and boxsize % 8 == 0 else \
         (4 if boxsize >= 64 and boxsize % 4 == 0 else 1)
+    return slice(0, H // boxsize * boxsize, step), step
+
+
+def box_stats(image, mask, boxsize: int, nsigma: float = 3.0):
+    """Raw per-box clipped median/STD (NaN where a box is fully masked)."""
+    rows, step = box_rows(image.shape[0], boxsize)
+    return sampled_box_stats(image[rows],
+                             None if mask is None else mask[rows],
+                             boxsize, step, nsigma)
+
+
+def sampled_box_stats(image, mask, boxsize: int, step: int,
+                      nsigma: float = 3.0):
+    """:func:`box_stats` of the rows it reads (``box_rows``), given."""
+    ny, nx = image.shape[0] * step // boxsize, image.shape[1] // boxsize
     bs = boxsize // step
 
     def tiles_of(a):
-        a = a[:ny * boxsize:step, :nx * boxsize]
+        a = a[:, :nx * boxsize]
         return a.reshape(ny, bs, nx, boxsize).transpose(1, 2).reshape(
             ny, nx, -1)
 

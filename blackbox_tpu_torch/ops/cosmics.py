@@ -21,7 +21,10 @@ The variants follow the JAX package's ``LACosmicParams``, in its order:
 Clean-once semantics, as in the JAX package: each cosmic pixel is
 replaced exactly once, in the round that detects it, so a round after
 one with zero new detections is a no-op and is skipped (the count is
-read on the host).  The JAX package's windowed and pre-screened rounds
+read on the host).  With ``coords`` the data is a column block of a
+wider frame (:func:`blackbox_tpu_torch.parallel.mesh.lacosmic_sharded`):
+the rounds run a fixed number of times, with the border masks in frame
+coordinates.  The JAX package's windowed and pre-screened rounds
 are exact cost devices for the TPU (held bit-identical to the dense
 round by its own tests): their switches are accepted and select the
 dense round, after the JAX package's argument checks.
@@ -58,12 +61,17 @@ class LACosmicParams:
     window_chunk: int = 256
 
 
-def lacosmic(data, inmask, rdnoise, params: LACosmicParams = LACosmicParams()):
+def lacosmic(data, inmask, rdnoise, params: LACosmicParams = LACosmicParams(),
+             coords=None):
     """Detect and clean cosmic rays.
 
     data    : (H, W) float32, e- (sky-included, calibrated)
     inmask  : (H, W) bool — pixels excluded from detection, or None
     rdnoise : scalar or (H, W) read noise [e-]
+    coords  : optional (col0, W_total) when ``data`` is a column block
+              of a wider frame (the sharded path): the border masks
+              then use frame coordinates, so a block's interior equals
+              the whole frame's dense result there.
 
     Returns (cleaned data, crmask bool, per-round new-detection counts).
     """
@@ -80,6 +88,8 @@ def lacosmic(data, inmask, rdnoise, params: LACosmicParams = LACosmicParams()):
                               niter=p.niter)
     if inmask is None:
         inmask = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
+    if coords is not None:
+        return _lacosmic_dense_coords(data, inmask, rdnoise, p, coords)
     if p.sepmed:
         return _rounds(data, inmask, rdnoise, p,
                        lambda a, k: median_filter_sep(a, k, p.strip_rows))
@@ -122,9 +132,55 @@ def _rounds(data, inmask, rdnoise, p: LACosmicParams, medf, clean_cap=0):
     return clean, crmask, torch.stack(counts)
 
 
-def _detect_math(clean, good, rdnoise, p: LACosmicParams, medf):
+def _lacosmic_dense_coords(data, inmask, rdnoise, p: LACosmicParams,
+                           coords):
+    """Dense rounds on a column block with the border masks in frame
+    coordinates (the JAX package's ``_lacosmic_dense_coords``).
+
+    The k x k medians (K2 on the card) and the masked clean keep the
+    input only on the frame's border, so a shard seam gets the stencil
+    results its halo columns feed.  The block's own outer columns (its
+    halo) may differ from the JAX package's edge-padded medians; the
+    caller discards them.  The rounds run ``p.niter`` times with no
+    early exit, which needs the frame's count; a round after one with
+    no new detection is a no-op (clean-once), so the result is the
+    guarded dense path's.  The clean keeps a NaN median, as the JAX
+    package's windowed clean does.
+    """
+    col0, W_total = coords
+    H, W = data.shape
+    dev = data.device
+    ri = torch.arange(H, device=dev)[:, None]
+    ci = (int(col0) + torch.arange(W, device=dev))[None, :]
+
+    def bk(pk):
+        return (ri < pk) | (ri >= H - pk) | (ci < pk) | (ci >= W_total - pk)
+
+    ring = (ri == 0) | (ri == H - 1) | (ci == 0) | (ci == W_total - 1)
+    border2 = bk(2)
+
+    def medf(a, k):
+        return torch.where(bk(k // 2), a, median_filter(a, k, p.strip_rows))
+
+    clean = data
+    crmask = torch.zeros(data.shape, dtype=torch.bool, device=dev)
+    counts = []
+    for _ in range(p.niter):
+        cosm, m5un = _detect_math(clean, ~inmask, rdnoise, p, medf,
+                                  lambda v: laplacian_subsampled(v, ring))
+        new = cosm & ~crmask
+        counts.append(torch.sum(new, dtype=torch.int32))
+        crmask = crmask | cosm
+        repl = masked_median_filter(clean, crmask | inmask, 5, p.strip_rows,
+                                    fallback=m5un, nan_fallback=False)
+        clean = torch.where(new & ~border2, repl, clean)
+    return clean, crmask, torch.stack(counts)
+
+
+def _detect_math(clean, good, rdnoise, p: LACosmicParams, medf,
+                 lapf=laplacian_subsampled):
     """One L.A.Cosmic detection round with border-keeping k x k medians
-    ``medf(a, k)``.
+    ``medf(a, k)`` and the ring-zeroed subsampled Laplacian ``lapf``.
 
     Returns (cosm bool, unclamped 5x5 median of ``clean``).
     """
@@ -134,7 +190,7 @@ def _detect_math(clean, good, rdnoise, p: LACosmicParams, medf):
     noise = torch.sqrt(m5 + rdnoise ** 2)
 
     # Laplacian SNR, large-scale structure removed
-    s = laplacian_subsampled(clean) / (2.0 * noise)
+    s = lapf(clean) / (2.0 * noise)
     sp = s - medf(s, 5)
 
     # fine structure: med3 - med7(med3), floor 0.01

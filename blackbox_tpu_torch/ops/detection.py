@@ -57,6 +57,13 @@ def gaussian_taps(fwhm: float, radius: int | None = None) -> tuple:
     return tuple(float(v) for v in k)
 
 
+def gaussian_kernel1d(fwhm: float, radius: int | None = None,
+                      device=None) -> torch.Tensor:
+    """:func:`gaussian_taps` as a float32 tensor."""
+    return torch.tensor(gaussian_taps(fwhm, radius), dtype=torch.float32,
+                        device=device)
+
+
 def _conv1d(image, taps, dim: int):
     """1-D convolution as shifted adds (zero padding), taps in order."""
     r = (len(taps) - 1) // 2

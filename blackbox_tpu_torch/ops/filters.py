@@ -492,13 +492,16 @@ def median_filter_sep(img: torch.Tensor, k: int, strip_rows: int = 264):
 
 
 def masked_median_filter(img: torch.Tensor, bad: torch.Tensor, k: int = 5,
-                         strip_rows: int = 264, fallback=None):
+                         strip_rows: int = 264, fallback=None,
+                         nan_fallback: bool = True):
     """k x k median over neighbours where ``bad`` is False.
 
     An even count of good pixels gives ``0.5 * (lo + hi)``; a window
-    with no good pixel (or a NaN median) takes ``fallback`` (default:
-    the input); the outer ``k//2`` border keeps the input.  Plain
-    PyTorch on every device (the JAX package has no kernel for it).
+    with no good pixel takes ``fallback`` (default: the input), and so
+    does a NaN median unless ``nan_fallback`` is False (the JAX
+    package's windowed form, ``_win_masked_median``, keeps it); the
+    outer ``k//2`` border keeps the input.  Plain PyTorch on every
+    device (the JAX package has no kernel for it).
     """
     H, W = img.shape
     p = k // 2
@@ -527,16 +530,21 @@ def masked_median_filter(img: torch.Tensor, bad: torch.Tensor, k: int = 5,
         i_hi = ngood // 2
         lo = vs.gather(0, i_lo[None].long())[0]
         hi = vs.gather(0, i_hi[None].long())[0]
-        med = torch.where(ngood > 0, 0.5 * (lo + hi), torch.nan)
-        med = torch.where(torch.isnan(med), fb[r0:r1, p:W - p], med)
+        fbs = fb[r0:r1, p:W - p]
+        if nan_fallback:
+            med = torch.where(ngood > 0, 0.5 * (lo + hi), torch.nan)
+            med = torch.where(torch.isnan(med), fbs, med)
+        else:
+            med = torch.where(ngood > 0, 0.5 * (lo + hi), fbs)
         out[r0:r1, p:W - p] = med
     return out
 
 
-def laplacian_subsampled(img: torch.Tensor) -> torch.Tensor:
+def laplacian_subsampled(img: torch.Tensor, ring=None) -> torch.Tensor:
     """L+ of the 2x-subsampled image, rebinned back (van Dokkum 2001 §3),
     in closed form: the mean of the four subpixel positive Laplacians.
-    The frame-border ring is zeroed."""
+    The frame-border ring is zeroed, or the pixels of the bool map
+    ``ring`` (a column block's share of its frame's ring)."""
     v = img
     up = torch.roll(v, 1, 0)
     dn = torch.roll(v, -1, 0)
@@ -548,6 +556,8 @@ def laplacian_subsampled(img: torch.Tensor) -> torch.Tensor:
     l11 = 2 * v - dn - rt
     lplus = 0.25 * (l00.clamp(min=0.0) + l01.clamp(min=0.0)
                     + l10.clamp(min=0.0) + l11.clamp(min=0.0))
+    if ring is not None:
+        return torch.where(ring, 0.0, lplus)
     lplus[0, :] = 0.0
     lplus[-1, :] = 0.0
     lplus[:, 0] = 0.0

@@ -7,8 +7,9 @@ the raw directory with the ingest watcher until one hour past sunrise
 and drains the queue (392-466), then builds the obslog.  Where the
 reference forks one process per image, frames here flow through one
 process that owns the GPU (port of
-:mod:`blackbox_tpu.orchestration.scheduler`; the sharded multi-device
-batches of ``device_batch > 1`` are not ported yet).
+:mod:`blackbox_tpu.orchestration.scheduler`), and multi-device
+throughput comes from sharded batches (blackbox_tpu_torch.parallel),
+not fork().
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ class RunReport:
     nskipped: int = 0
     nrejected: int = 0
     nerror: int = 0
+    # frames of a failed device batch that were reduced one at a time
+    batch_fallbacks: int = 0
     results: list = dataclasses.field(default_factory=list)
 
     def add(self, path, result):
@@ -105,12 +108,99 @@ def run_day(pipeline, date: str, image_filter: Optional[Callable] = None,
 
 def _run_batched_objects(pipeline, paths, db: int, report: RunReport,
                          force: bool) -> None:
-    """Device-batched science reduction over several devices (the JAX
-    package shards frame stacks across its mesh here).  The port has no
-    multi-device path yet: ``settings.device_batch > 1`` is refused."""
-    raise NotImplementedError(
-        f"device_batch={db} needs the multi-device path (parallel/), which "
-        "blackbox_tpu_torch does not port yet")
+    """Device-batched science reduction: calibrate+extract over frame
+    stacks split across devices, host publication per frame."""
+    import numpy as np
+    import torch
+
+    from blackbox_tpu_torch.orchestration.paths import night_date
+    from blackbox_tpu_torch.parallel.mesh import (make_batched_reduce,
+                                                  make_mesh)
+
+    ctx = pipeline.ctx
+    geom = pipeline.geom
+    xt = pipeline.xtalk
+    nl = pipeline.nonlin_coeffs
+
+    # group by (night date, filter): those share masters and BPM
+    groups: dict = {}
+    for p in paths:
+        try:
+            _, h = read_fits(p)[0]
+            d = night_date(float(h.get("MJD-OBS", 60000.0))
+                           if "MJD-OBS" in h else str(h["DATE-OBS"]),
+                           pipeline.site[1])
+            f = str(h.get("FILTER", "q")).strip()
+            groups.setdefault((d, f), []).append(p)
+        except Exception:
+            report.add(p, pipeline.process_file(p, force=force))
+
+    # the pipeline's device, or every card when it runs on one
+    dev = pipeline.device
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if dev.type == "cuda" else [dev])
+    ndev = len(devices)
+    for (d, f), group in groups.items():
+        mb, _ = pipeline.masters.ensure_master("bias", d, geom) \
+            if ctx.subtract_mbias else (None, None)
+        mf, _ = pipeline.masters.ensure_master("flat", d, geom, filt=f)
+        mbias = None if mb is None else geom.disassemble(
+            torch.as_tensor(np.asarray(mb, np.float32), device=dev))
+        mflat = None if mf is None else geom.disassemble(
+            torch.as_tensor(np.asarray(mf, np.float32), device=dev))
+        bpm = pipeline._load_bpm(f)
+
+        for b0 in range(0, len(group), db):
+            chunk = group[b0:b0 + db]
+            stacks, ok_paths = [], []
+            for p in chunk:
+                try:
+                    raw, _h = read_fits(p)[0]
+                    stacks.append(geom.split_raw(pipeline._upload_raw(raw)))
+                    ok_paths.append(p)
+                except Exception:
+                    report.add(p, pipeline.process_file(p, force=force))
+            if not ok_paths:
+                continue
+            batch = tuple(torch.stack([s[k] for s in stacks])
+                          for k in range(3))
+            del stacks
+            # the mesh must divide the batch axis exactly: a partial
+            # last chunk (e.g. 6 frames on 4 devices) takes the largest
+            # divisor
+            n = len(ok_paths)
+            nmesh = max(k for k in range(1, min(ndev, n) + 1)
+                        if n % k == 0)
+            try:
+                outs = make_batched_reduce(
+                    ctx, make_mesh(nmesh, 1, devices))(
+                    *batch, mbias, mflat, bpm, xt, nl)
+            except Exception:
+                # a device-side batch failure must not abort the night:
+                # contain it to this chunk and fall back per frame
+                log.exception("batched reduce failed for %d frames; "
+                              "falling back to per-frame processing",
+                              len(ok_paths))
+                report.batch_fallbacks += len(ok_paths)
+                for p in ok_paths:
+                    report.add(p, pipeline.process_file(p, force=force))
+                continue
+            del batch
+            for p, out in zip(ok_paths, outs):
+                if out is None:
+                    # another rank's frame (under a process group)
+                    continue
+                ext = out["ext"]
+                # the calibration's own statistics: the merged dict
+                # less the extraction's
+                stats = {k: v for k, v in out["stats"].items()
+                         if k not in ext["stats"]}
+                report.add(p, pipeline.process_file(
+                    p, force=force,
+                    device_override={"sci": out["image"],
+                                     "mask": out["mask"], "stats": stats,
+                                     "ext": ext}))
 
 
 def run_night(pipeline, date: str, *,

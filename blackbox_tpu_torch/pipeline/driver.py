@@ -25,10 +25,11 @@ package.  The U-Net trail segmentation (``trailnet_params``, or
 :func:`blackbox_tpu_torch.models.trailnet.save_params`) and the
 real/bogus network (``vetnet_params``) run on ``device`` (their state
 dicts; :func:`blackbox_tpu_torch.models.trailnet.from_jax_params`
-carries the JAX package's flax parameters across).  Not in this port
-yet, and refused with ``NotImplementedError`` naming the missing
-module: the batched runner's precomputed device work
-(``process_file(device_override=...)``).
+carries the JAX package's flax parameters across).  The batched
+runner (``scheduler.run_day`` with ``device_batch > 1``) does a chunk's
+device work on its mesh and hands each frame's outputs to
+``process_file(device_override=...)``, which then skips the raw upload
+and the masters' data (their headers are still read and stamped).
 """
 
 from __future__ import annotations
@@ -87,12 +88,6 @@ def _host(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
-
-
-def _not_ported(what: str, module: str):
-    return NotImplementedError(
-        f"{what} needs {module}, which blackbox_tpu_torch does not port "
-        "yet")
 
 
 @dataclasses.dataclass
@@ -312,15 +307,12 @@ class Pipeline:
                      img_reduce: bool = True, cat_extract: bool = True,
                      trans_extract: bool = True,
                      device_override=None) -> FrameResult:
-        if device_override is not None:
-            raise _not_ported("precomputed device work (device_override)",
-                              "the batched scheduler "
-                              "(orchestration/scheduler.py)")
         t0 = time.time()
         self._spans = {}
         try:
             res = self._process(path, force, img_reduce, cat_extract,
-                                trans_extract)
+                                trans_extract,
+                                device_override=device_override)
         except Exception as e:          # frame-level containment
             log.exception("frame %s failed", path)
             res = FrameResult(status="error",
@@ -331,7 +323,7 @@ class Pipeline:
         return res
 
     def _process(self, path, force, img_reduce, cat_extract,
-                 trans_extract) -> FrameResult:
+                 trans_extract, device_override=None) -> FrameResult:
         dev = self.device
         try:
             with timer(SPAN_READ, spans=self._spans):
@@ -392,8 +384,11 @@ class Pipeline:
             pixscale = self.settings.pixscale
         else:
             # ---- calibration: the raw mosaic goes to the device once
-            # and is split there ----
-            chan, osv, osh = self.geom.split_raw(self._upload_raw(raw))
+            # and is split there, unless a batched runner already did
+            # the device work ----
+            chan = osv = osh = None
+            if device_override is None:
+                chan, osv, osh = self.geom.split_raw(self._upload_raw(raw))
             del raw
 
             def _master_keys(tag: str, mh):
@@ -429,18 +424,23 @@ class Pipeline:
             with timer(SPAN_MASTERS, sync=dev, spans=self._spans):
                 if imgtype in ("object", "flat", "dark") and \
                         self.ctx.subtract_mbias:
-                    mb, mbh = self.masters.ensure_master("bias", date,
-                                                         self.geom)
+                    mb, mbh = self.masters.ensure_master(
+                        "bias", date, self.geom,
+                        header_only=device_override is not None)
+                    # header_only returns (None, header): the stamps key
+                    # on the header, so the batched path still records
+                    # which master was applied
                     if mbh is not None:
-                        if mb is not None:
+                        if device_override is None and mb is not None:
                             mbias = _to_chan(mb)
                         h["MBIAS-P"] = True
                         _master_keys("BIAS", mbh)
                 if imgtype == "object":
                     mf, mfh = self.masters.ensure_master(
-                        "flat", date, self.geom, filt=filt)
+                        "flat", date, self.geom, filt=filt,
+                        header_only=device_override is not None)
                     if mfh is not None:
-                        if mf is not None:
+                        if device_override is None and mf is not None:
                             mflat = _to_chan(mf)
                         h["MFLAT-P"] = True
                         _master_keys("FLAT", mfh)
@@ -457,7 +457,12 @@ class Pipeline:
                         "static bad-pixel mask applied")
 
             with timer(SPAN_CALIB, sync=dev, spans=self._spans):
-                if (imgtype == "object" and cat_extract
+                if device_override is not None:
+                    # device work precomputed by the batched runner
+                    sci = device_override["sci"]
+                    mask = device_override["mask"]
+                    stats = dict(device_override["stats"])
+                elif (imgtype == "object" and cat_extract
                         and self.trailnet_params is None):
                     # calibration + extraction in one call; on a QC-red
                     # frame the speculative extraction is discarded
@@ -578,7 +583,8 @@ class Pipeline:
                                    products=products, header=h, stats=stats)
 
         # ---- source extraction ----
-        ext = fused_ext
+        ext = (device_override.get("ext")
+               if device_override is not None else fused_ext)
         if ext is None:
             with timer(SPAN_CALIB, sync=dev, spans=self._spans):
                 ext = self._extract(sci, mask)

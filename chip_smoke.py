@@ -13,22 +13,31 @@ Phases, each printing its own lines:
    (``extract_transients``' form), the k = 3, 5, 7 medians (K2) of a
    10560² frame and of a copy with 1e-4 of its pixels NaN, 20000 32² +
    1024 96² window gathers (K4) from an f32 and an int32 frame with
-   n_active < N, the split-real FFT (K6) of a 10752 x 10752 pair
+   n_active < N (and on edge cases: n_active 0, 1 and N, sizes 1, 26
+   and 96, windows clamped at the four corners, three images), the
+   split-real FFT (K6) of a 10752 x 10752 pair
    forward and inverse (each pass's two launches, step A and radix-2,
    timed apart under ``torch.profiler``), and the fused detection (K5)
    in its detection form (the star field, 9 taps, a std map, an
    exclusion, 32 steps) and its transient form (|x|, no taps, 48
    steps).  Both times come from CUDA events (K4's two calls, ~0.1 ms
-   each, as the median of 25 launches each timed apart,
-   ``median_ms``); each kernel's bound is
+   each, as the median of 25 launches each timed apart from an idle
+   card, ``median_ms``); each kernel's bound is
    worked out from the bytes it must move and the operations it must
    do at those shapes (``bound``; K4's for each of its two calls).
-   The times of K1's, K5's, K6's and K7's previous designs are printed
-   beside theirs (``PREVIOUS_MS``).
+   The times of K1's, K4's, K5's, K6's and K7's previous designs are printed
+   beside theirs (``PREVIOUS_MS``); K4's previous design is also built
+   (``PREVIOUS_K4_SOURCE``) and timed beside the current one in this
+   run, through the same host path, from an idle card and behind a
+   sleep kernel (the device's time alone).
 3. The reduction (``make_reduce_fn``, production configuration with the
    PSF stages on) of a TINY frame on the card held against the same
    frame reduced on the CPU with the plain versions, then of three full
-   MeerLICHT frames made on the card from three seeds.
+   MeerLICHT frames made on the card from three seeds.  After the
+   counted run, one more frame with every K4 call recorded
+   (``k4_calls``): each call's live slots, and each call again through
+   both K4 designs (``k4_path_replay``).  Phase 7's night prints the
+   live slots of its K4 calls as well.
 4. The science path (``make_science_programs``): the reference products
    from seed 12345, then a timed scene (bench.py's registration: 0.05
    deg rotation, offset (3.2, -2.7), 8 strips) of one warm-up and two
@@ -120,13 +129,24 @@ Phases, each printing its own lines:
    the counted run, ``orient_data``'s Lanczos route on a cut-out around
    a transient (card against CPU) and K1 at the U-Net's 2640² shape
    against its plain version.
-10. One JSON line with the kernels' counts and times (K4's with the
+10. The multi-device paths on one card (``multi_device_phase``), on a
+   mesh of four tile shards (cuda:0 four times; every card, when there
+   are more): ``lacosmic_sharded`` on phase 3's last calibrated frame
+   with 400 more cosmic hits against the dense ``lacosmic``, and
+   ``extract_catalog_sharded`` on it against ``extract_catalog``, bit
+   for bit; ``make_batched_reduce`` of two full MeerLICHT frames on a
+   2 x 1 mesh against ``make_reduce_fn`` per frame, bit for bit (K1
+   twice, K2 and K4 launched); ``run_day(device_batch=2)`` of phase 7's
+   TINY night on the card against its per-file run on the card
+   (``night_parity``, no fallback); ``dryrun_multichip(4)``.  Each step
+   prints its ms.
+11. One JSON line with the kernels' counts and times (K4's with the
    time of the same gathers by advanced indexing, ``library_ms``; K1's
    with its time at the U-Net's shape, ``unet_*``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 The launch counters are zeroed just before each of phases 3, 4, 5, 7's
-full night, 8 and 9 and read just after it: every kernel of a phase's path
+full night, 8, 9 and 10 and read just after it: every kernel of a phase's path
 must have moved, K1 must show 1 launch per catalog frame and 2 per
 science frame (its 48 transient steps are one launch), K6 6 per science
 frame, K7 3 per frame it calibrates (it counts iterations, four CUDA
@@ -134,12 +154,14 @@ launches each) and K2 none in phase 5; the night must show K1 3 times
 (two catalogs, one subtraction) and K6 6 times, phase 8 K6 6 times
 (one subtraction), phase 9 K1 twice for the U-Net passes over phase 3's
 frame and, in the fifth visit, once for each U-Net, catalog and
-subtraction, and K6 6 times (one subtraction).  Any failure raises:
+subtraction, and K6 6 times (one subtraction), phase 10's batched
+reduce K1 twice (two frames).  Any failure raises:
 the script then exits non-zero and prints no ok line.
 It needs a CUDA device and the repository's port package, and the
 ``tests/night_parity.py`` helper beside it.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -175,7 +197,11 @@ PREVIOUS_MS = {"K1 star field": 6.152, "K1 transient map": 3.538,
                "K6 forward step A": 1.123, "K6 forward radix-2": 2.329,
                "K6 inverse step A": 1.156, "K6 inverse radix-2": 2.290,
                "K5 detection": 15.181, "K5 transient": 9.685,
-               "K7": 52.781}
+               "K7": 52.781,
+               # K4's first design (one block a slot): the median of 25
+               # launches, each timed from an idle card (median_ms), in
+               # the last run of this script that shipped it
+               "K4 20000x32^2": 0.1684, "K4 1024x96^2": 0.0937}
 FRATIO = 1.3            # the reference is made 1.3x deeper (bench.py)
 NTRANS = 20             # transients injected into the gated scene
 
@@ -186,6 +212,130 @@ def card_label() -> str:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+# K4's first design (one 256-thread block a slot, a pixel's row
+# and column by a division), built beside the port's kernels so that
+# phase 2 and the replay of a frame's gathers after phase 3 time it and
+# the current csrc/gather.cu in one call, with the same host path and
+# the same two timers
+PREVIOUS_K4_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+__global__ void __launch_bounds__(256)
+gather_previous(const uint32_t* __restrict__ in0,
+                const uint32_t* __restrict__ in1,
+                const uint32_t* __restrict__ in2, uint32_t* __restrict__ out0,
+                uint32_t* __restrict__ out1, uint32_t* __restrict__ out2,
+                int n_img, const int* __restrict__ y0,
+                const int* __restrict__ x0, const int* __restrict__ n_active,
+                int N, int H, int W, int size) {
+  const int slot = blockIdx.x;
+  const bool live = slot < (n_active ? *n_active : N);
+  const int y = live ? min(max(y0[slot], 0), H - size) : 0;
+  const int x = live ? min(max(x0[slot], 0), W - size) : 0;
+  const int area = size * size;
+  for (int k = 0; k < n_img; ++k) {
+    const uint32_t* src = k == 0 ? in0 : (k == 1 ? in1 : in2);
+    uint32_t* dst = (k == 0 ? out0 : (k == 1 ? out1 : out2))
+                    + (size_t)slot * area;
+    for (int i = threadIdx.x; i < area; i += 256) {
+      const int r = i / size;
+      const int c = i - r * size;
+      dst[i] = live ? src[(size_t)(y + r) * W + (x + c)] : 0u;
+    }
+  }
+}
+
+extern "C" int bbt_gather_windows_previous(
+    const void* in0, const void* in1, const void* in2, void* out0,
+    void* out1, void* out2, int n_img, const void* y0, const void* x0,
+    const void* n_active, int N, int H, int W, int size, void* stream) {
+  if (n_img < 1 || n_img > 3 || size < 1 || size > H || size > W)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaGetLastError();
+  gather_previous<<<N, 256, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)in0, (const uint32_t*)in1, (const uint32_t*)in2,
+      (uint32_t*)out0, (uint32_t*)out1, (uint32_t*)out2, n_img,
+      (const int*)y0, (const int*)x0, (const int*)n_active, N, H, W, size);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_previous_k4():
+    """Start nvcc on PREVIOUS_K4_SOURCE, next to the port's build; returns
+    a function that waits for it and loads the library."""
+    import ctypes
+    from blackbox_tpu_torch import kernels
+    kernels.BUILD.mkdir(exist_ok=True)
+    src = kernels.BUILD / f"k4_previous.{os.getpid()}.cu"
+    so = src.with_suffix(".so")
+    src.write_text(PREVIOUS_K4_SOURCE)
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
+           str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+    def load():
+        out, _ = proc.communicate()
+        src.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on K4's previous design:\n"
+                               f"{' '.join(cmd)}\n{out}")
+        handle = ctypes.CDLL(str(so))
+        so.unlink()
+        fn = handle.bbt_gather_windows_previous
+        fn.argtypes = list(kernels._SIGNATURES["bbt_gather_windows"])
+        fn.restype = ctypes.c_int
+        return fn
+
+    return load
+
+
+def previous_gather(launch, imgs, y0, x0, size, n_active):
+    """``windows._gather_cuda`` with K4's previous design: the same host
+    path, another kernel."""
+    from blackbox_tpu_torch import kernels
+    H, W = imgs[0].shape
+    N = y0.shape[0]
+    y0 = y0.to(torch.int32).contiguous()
+    x0 = x0.to(torch.int32).contiguous()
+    nact = None
+    if n_active is not None:
+        nact = torch.as_tensor(n_active, dtype=torch.int32,
+                               device=y0.device).reshape(1)
+    kernels.require_cuda("previous K4", *imgs, y0, x0,
+                         *(() if nact is None else (nact,)))
+    outs = tuple(torch.empty((N, size, size), dtype=im.dtype,
+                             device=im.device) for im in imgs)
+    ptr = [im.data_ptr() for im in imgs] + [None] * (3 - len(imgs))
+    optr = [o.data_ptr() for o in outs] + [None] * (3 - len(imgs))
+    with torch.cuda.device(y0.device):
+        kernels.check(launch(
+            *ptr, *optr, len(imgs), y0.data_ptr(), x0.data_ptr(),
+            None if nact is None else nact.data_ptr(), N, H, W, size,
+            kernels.stream_of(y0)), "previous K4")
+    return outs
+
+
+def k4_two_designs(prev, imgs, y0, x0, size, n_active):
+    """One K4 call through the current kernel (``windows._gather_cuda``)
+    and the previous design, each bit for bit against the other; both
+    timed from an idle card and behind a sleep kernel (``median_ms``).
+    Returns {"current"|"previous": (idle ms, busy ms)}."""
+    from blackbox_tpu_torch.ops import windows
+    imgs = tuple(windows._widen(im).contiguous() for im in imgs)
+    runs = {"current": lambda: windows._gather_cuda(imgs, y0, x0, size,
+                                                    n_active),
+            "previous": lambda: previous_gather(prev, imgs, y0, x0, size,
+                                                n_active)}
+    for a, b in zip(runs["current"](), runs["previous"]()):
+        max_abs_err(a, b)
+    return {k: (median_ms(f), median_ms(f, busy=True))
+            for k, f in runs.items()}
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -202,16 +352,23 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def median_ms(fn, reps: int = 25) -> float:
+def median_ms(fn, reps: int = 25, busy: bool = False) -> float:
     """Median device ms of ``fn`` over ``reps`` launches after one
     warm-up, each timed by its own pair of CUDA events: a ~0.1 ms call
-    timed as a mean of a few runs moves with the card's clocks (K4)."""
+    timed as a mean of a few runs moves with the card's clocks (K4).
+    From an idle card (the default, how the ``kernels`` line's K4 times
+    have always been taken) the events also count the host's path through the
+    wrapper up to the launch; with ``busy`` a sleep kernel of ~0.5 ms
+    runs before each start event, so the card is still busy while the
+    host queues the call and the events time the device's work only."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -322,8 +479,9 @@ def label_start(mask):
     return torch.where(mask, idx, H * W + 2)
 
 
-def check_kernels(card):
-    """Phase 2: each kernel against its plain version at full shapes."""
+def check_kernels(card, prev):
+    """Phase 2: each kernel against its plain version at full shapes
+    (``prev``: K4's previous design, ``start_previous_k4``)."""
     from blackbox_tpu_torch.core.geometry import MEERLICHT
     from blackbox_tpu_torch.ops import filters, labeling, windows
 
@@ -406,7 +564,7 @@ def check_kernels(card):
 
     # K4: the catalog's small and big window gathers, n_active < N
     ms = plain = err = nbytes = lib = 0.0
-    call_bounds, call_library = [], []
+    call_bounds, call_library, designs = [], [], []
     for N, size in ((20000, 32), (1024, 96)):
         y0 = torch.randint(-20, H + 20, (N,), generator=gen, device="cuda",
                            dtype=torch.int32)
@@ -438,21 +596,145 @@ def check_kernels(card):
         nbytes += call_bytes
         cb = bound(call_bytes)
         call_bounds.append(cb[0])
+        d = k4_two_designs(prev, (img, seg), y0, x0, size, nact)
+        designs.append(d)
+        prev_ms = PREVIOUS_MS[f"K4 {N}x{size}^2"]
         print(f"K4 gather_slot_windows {N}x{size}^2 (f32 + int32, "
-              f"n_active {int(nact)}): bit-exact, kernel {tk:.4f} ms, "
-              f"plain {tpl:.3f} ms, library (frame[iy, ix] of both frames) "
-              f"{tlib:.3f} ms (each the median of 25 launches), bound "
+              f"n_active {int(nact)}): bit-exact, kernel {tk:.4f} ms "
+              f"(the previous design in its last run: {prev_ms:.4f} ms, "
+              f"{cb[0] / prev_ms:.1%} of the bound), plain {tpl:.3f} ms, "
+              f"library (frame[iy, ix] of both frames) {tlib:.3f} ms (each "
+              f"the median of 25 launches from an idle card), bound "
               f"{cb[0]:.4f} ms ({cb[1]}; {cb[0] / tk:.1%} of the kernel's "
               f"time) [{card}]")
+        print(f"K4 {N}x{size}^2, both designs in this run through the same "
+              f"host path, from an idle card / behind a sleep kernel: "
+              f"current {d['current'][0]:.4f} / {d['current'][1]:.4f} ms "
+              f"({cb[0] / d['current'][0]:.1%} / "
+              f"{cb[0] / d['current'][1]:.1%} of the bound), previous (one "
+              f"block a slot) {d['previous'][0]:.4f} / "
+              f"{d['previous'][1]:.4f} ms ({cb[0] / d['previous'][0]:.1%} "
+              f"/ {cb[0] / d['previous'][1]:.1%}) [{card}]")
+    err = max(err, check_k4_edges(img, seg, card))
     results.append(dict(entry("gather_slot_windows",
                               "blackbox_tpu_torch/csrc/gather.cu",
                               "blackbox_tpu/pallas/gather.py:61", err, ms,
                               plain, *bound(nbytes), library_ms=lib),
                         call_bound_ms=call_bounds,
-                        call_library_ms=call_library))
+                        call_library_ms=call_library,
+                        designs_ms={k: [[d[k][0] for d in designs],
+                                        [d[k][1] for d in designs]]
+                                    for k in ("current", "previous")}))
     results.append(check_fft(card))
     results.append(check_detect(card, img))
     return results
+
+
+@contextlib.contextmanager
+def k4_calls(keep_args: bool):
+    """Every ``gather_slot_windows`` call the port's ops make inside the
+    block, recorded in the yielded list as (N, size, images, n_active)
+    and, with ``keep_args``, the call's (images, y0, x0)."""
+    from blackbox_tpu_torch.ops import (detection, photometry, psf,
+                                        transients, windows)
+    calls = []
+    orig = windows.gather_slot_windows
+
+    def keep(images, y0, x0, size, n_active=None):
+        imgs = tuple(images) if isinstance(images, (tuple, list)) \
+            else (images,)
+        calls.append((y0.shape[0], size, len(imgs), n_active,
+                      (imgs, y0, x0) if keep_args else None))
+        return orig(images, y0, x0, size, n_active=n_active)
+
+    mods = (detection, photometry, psf, transients)
+    for m in mods:
+        m.gather_slot_windows = keep
+    try:
+        yield calls
+    finally:
+        for m in mods:
+            m.gather_slot_windows = orig
+
+
+def k4_live(calls, label, card):
+    """Print the live share of each kind of recorded K4 call."""
+    by = {}
+    for N, size, nimg, n_active, _ in calls:
+        live = N if n_active is None else int(n_active)
+        by.setdefault((N, size, nimg), []).append(live)
+    for (N, size, nimg), live in sorted(by.items()):
+        print(f"K4 calls in {label}: {N}x{size}^2, {nimg} image(s): "
+              f"{len(live)} calls, live slots {min(live)}-{max(live)} of "
+              f"{N} ({min(live) / N:.1%}-{max(live) / N:.1%}) [{card}]")
+
+
+def k4_path_replay(ctx, card, mbias, mflat, xtalk, prev):
+    """After phase 3's counted run: one more raw -> catalog frame (seed
+    SEEDS[0]) with every K4 call's arguments kept, then each call again
+    through both K4 designs (``k4_two_designs``), so the two are compared on
+    the path's own live counts.  Returns the K4 entry's ``path_*``
+    keys."""
+    from blackbox_tpu_torch.pipeline.reduce import make_reduce_fn
+    from blackbox_tpu_torch.synth.device import make_science_device
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[0])
+    chan, osv, osh, _ = make_science_device(
+        gen, ctx.geom, nstars=4000, ncosmics=800, trail=True, nsat=20)
+    with k4_calls(True) as calls:
+        out = make_reduce_fn(ctx)(chan, osv, osh, mbias, mflat, None, xtalk)
+        torch.cuda.synchronize()
+    del out, chan, osv, osh
+    k4_live(calls, f"a raw -> catalog frame (seed {SEEDS[0]})", card)
+    tot = {"current": [0.0, 0.0], "previous": [0.0, 0.0]}
+    shapes = []
+    for N, size, nimg, n_active, (imgs, y0, x0) in calls:
+        live = N if n_active is None else int(n_active)
+        shapes.append([N, size, nimg, live])
+        d = k4_two_designs(prev, imgs, y0, x0, size, n_active)
+        for k in tot:
+            tot[k] = [tot[k][0] + d[k][0], tot[k][1] + d[k][1]]
+        print(f"K4 on a frame's own call {N}x{size}^2, {nimg} image(s), "
+              f"{live} live: current {d['current'][0]:.4f} / "
+              f"{d['current'][1]:.4f} ms, previous {d['previous'][0]:.4f} "
+              f"/ {d['previous'][1]:.4f} ms (from an idle card / behind a "
+              f"sleep kernel; bit-exact against each other) [{card}]")
+    del calls
+    print(f"K4 on a frame's own {len(shapes)} calls: current "
+          f"{tot['current'][0]:.4f} / {tot['current'][1]:.4f} ms, previous "
+          f"{tot['previous'][0]:.4f} / {tot['previous'][1]:.4f} ms a frame "
+          f"(from an idle card / behind a sleep kernel) [{card}]")
+    return {"path_calls": shapes, "path_ms": tot}
+
+
+def check_k4_edges(img, seg, card):
+    """K4 bit for bit against its plain version on the edge cases:
+    n_active 0, 1, N and None; sizes 1, 26 (the PSF's) and 96; starts
+    past all four corners and at them; three images (f32, int32,
+    f32)."""
+    from blackbox_tpu_torch.ops import windows
+    H, W = img.shape
+    third = img * -0.5 + 3.0
+    ys = torch.tensor([-40, -40, H + 40, H + 40, 0, H - 1, 0, 5000, 77],
+                      dtype=torch.int32, device="cuda")
+    xs = torch.tensor([-40, W + 40, -40, W + 40, 0, W - 1, W - 1, 5000, 9],
+                      dtype=torch.int32, device="cuda")
+    N = ys.shape[0]
+    err, ncase = 0.0, 0
+    for size in (1, 26, 96):
+        for na in (0, 1, N, None):
+            nact = None if na is None else torch.tensor(
+                na, dtype=torch.int32, device="cuda")
+            for imgs in ((img,), (img, seg), (img, seg, third)):
+                got = windows.gather_slot_windows(imgs, ys, xs, size,
+                                                  n_active=nact)
+                ref = windows._gather_plain(imgs, ys, xs, size, nact)
+                err = max(err, *(max_abs_err(a, b)
+                                 for a, b in zip(got, ref)))
+                ncase += 1
+    print(f"K4 edge cases: {ncase} calls (n_active 0, 1, N, None; sizes 1, "
+          f"26, 96; the four corners; one to three images, f32/int32/f32) "
+          f"bit-exact [{card}]")
+    return err
 
 
 def dft_ops(N2: int) -> int:
@@ -1224,47 +1506,44 @@ def write_raw(path, geom, stacks, imgtype, mjd, exptime, ra, dec):
                                       ra, dec))
 
 
-def tiny_night_phase(card):
+def tiny_night_phase(card, base):
     """Phase 7, first part: the TINY night of tests/test_torch_driver.py
     through the port's Pipeline on the card and on the CPU (plain
     versions), each in its own copy of the raw tree, held together by
     tests/night_parity.py: statuses, product names, keywords and flags,
     masks bit for bit, images, catalogs and transients at the tier-1
     parity tolerances.  Quicklooks are off: this machine has no PIL
-    (tier-1 covers them on the CPU)."""
+    (tier-1 covers them on the CPU).  The raw tree and the card's run
+    stay under ``base`` for phase 10, which gets (card run, raw files,
+    stars)."""
     import shutil
-    import tempfile
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
-    import night_parity as NP
+    NP = night_parity()
     from blackbox_tpu_torch.config.defaults import ReductionSettings
     from blackbox_tpu_torch.core.geometry import TINY
     from blackbox_tpu_torch.orchestration.paths import DataTree
     from blackbox_tpu_torch.pipeline.driver import Pipeline
 
-    with tempfile.TemporaryDirectory() as base:
-        files, stars = NP.tiny_night(os.path.join(base, "raw"))
-        s = ReductionSettings(geometry=TINY, pixscale=NP.PIXSCALE,
-                              create_ref=True, make_quicklooks=False)
-        runs = {}
-        for device in ("cuda", "cpu"):
-            root = os.path.join(base, device)
-            shutil.copytree(os.path.join(base, "raw"), root)
-            pipe = Pipeline(DataTree(root, "ML1"), "ML1", s, NP.tiny_ctx(s),
-                            ref_catalog=NP.ref_catalog(stars,
-                                                       TINY.red_shape),
-                            device=device)
-            runs[device] = ([pipe.process_file(
-                os.path.join(root, os.path.relpath(f, os.path.join(
-                    base, "raw")))) for f in files], root)
-        gpu, cpu = runs["cuda"], runs["cpu"]
-        statuses = [r.status for r in gpu[0]]
-        errors = [r.error for r in gpu[0] if r.error]
-        if statuses != ["reduced"] * len(files):
-            raise AssertionError(f"TINY night on the card: {statuses} "
-                                 f"{errors}")
-        x, y = NP.check_night(gpu, cpu, NP.overscan_level(cpu))
-        h = gpu[0][-1].header
+    files, stars = NP.tiny_night(os.path.join(base, "raw"))
+    s = ReductionSettings(geometry=TINY, pixscale=NP.PIXSCALE,
+                          create_ref=True, make_quicklooks=False)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        root = os.path.join(base, device)
+        shutil.copytree(os.path.join(base, "raw"), root)
+        pipe = Pipeline(DataTree(root, "ML1"), "ML1", s, NP.tiny_ctx(s),
+                        ref_catalog=NP.ref_catalog(stars, TINY.red_shape),
+                        device=device)
+        runs[device] = ([pipe.process_file(
+            os.path.join(root, os.path.relpath(f, os.path.join(
+                base, "raw")))) for f in files], root)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    statuses = [r.status for r in gpu[0]]
+    errors = [r.error for r in gpu[0] if r.error]
+    if statuses != ["reduced"] * len(files):
+        raise AssertionError(f"TINY night on the card: {statuses} "
+                             f"{errors}")
+    x, y = NP.check_night(gpu, cpu, NP.overscan_level(cpu))
+    h = gpu[0][-1].header
     d = np.hypot(x - NP.TRANS[0], y - NP.TRANS[1])
     if d.min() >= 2.0:
         raise AssertionError(f"TINY night: no transient within 2 px of "
@@ -1275,6 +1554,15 @@ def tiny_night_phase(card):
           f"tolerances; second visit T-NTRANS {h['T-NTRANS']}, Z-FRATIO "
           f"{h['Z-FRATIO']}, the transient found {d.min():.2f} px from "
           f"its place [{card}]")
+    return gpu, files, stars
+
+
+def night_parity():
+    """tests/night_parity.py, the night and its comparisons (jax-free)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import night_parity as NP
+    return NP
 
 
 def night_phase(ctx, card, root):
@@ -2231,6 +2519,177 @@ def check_k1_unet(card, prob):
                 unet_shape=[Hb, Wb], unet_err=err)
 
 
+# ---------------------------------------------------------------- phase 10
+
+def same_tree(a, b, what):
+    """Every tensor of two nested outputs bit for bit (NaN equal)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{what}: keys {sorted(set(a) ^ set(b))}")
+        for k in a:
+            same_tree(a[k], b[k], f"{what} {k}")
+    elif isinstance(a, torch.Tensor):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what}: {a.shape} {a.dtype} against "
+                                 f"{b.shape} {b.dtype}")
+        try:
+            max_abs_err(a, b)
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {e}") from None
+
+
+def multi_device_phase(ctx, card, frame, tiny, mbias, mflat, xtalk):
+    """Phase 10: the multi-device paths on one card (on every card, when
+    there are more), each held to its single-device path.  The tile
+    meshes hold four shards: cuda:0 four times on a one-card machine.
+
+    - lacosmic_sharded on phase 3's last calibrated frame with 400
+      cosmic hits more (20 on the shard seams) against the dense
+      lacosmic, bit for bit;
+    - extract_catalog_sharded on that frame against extract_catalog
+      (bkg_boxsize 264: the production 256 does not tile a 2640-column
+      shard, which the JAX package refuses too), every output bit for
+      bit;
+    - make_batched_reduce of two full MeerLICHT frames on a 2 x 1 mesh
+      against make_reduce_fn per frame, bit for bit, K1 launched twice,
+      K2 and K4 launched;
+    - run_day(device_batch=2) of the TINY night on the card against
+      phase 7's per-file TINY night on the card (night_parity), with no
+      fallback;
+    - dryrun_multichip(4) on the four tile devices."""
+    import dataclasses as dc
+    import shutil
+    NP = night_parity()
+    from blackbox_tpu_torch.config.defaults import ReductionSettings
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.ops.cosmics import lacosmic
+    from blackbox_tpu_torch.orchestration.paths import DataTree
+    from blackbox_tpu_torch.orchestration.scheduler import run_day
+    from blackbox_tpu_torch.parallel.dryrun import dryrun_multichip
+    from blackbox_tpu_torch.parallel.extract import extract_catalog_sharded
+    from blackbox_tpu_torch.parallel.mesh import (lacosmic_sharded,
+                                                  make_batched_reduce,
+                                                  make_mesh)
+    from blackbox_tpu_torch.pipeline.driver import Pipeline
+    from blackbox_tpu_torch.pipeline.reduce import (extract_catalog,
+                                                    make_reduce_fn)
+    from blackbox_tpu_torch.synth.device import make_science_device
+
+    ncard = torch.cuda.device_count()
+    devs = [torch.device("cuda", i % ncard) for i in range(4)]
+    mesh = make_mesh(1, 4, devs)
+    where = f"{len(devs)} tile shards on {', '.join(map(str, devs))}"
+
+    # L.A.Cosmic: the frame with cosmic hits, 20 of them on the seams
+    img, msk = frame[0].cuda(), frame[1].cuda()
+    H, W = img.shape
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    ys = torch.randint(8, H - 8, (400,), generator=gen, device="cuda")
+    xs = torch.randint(8, W - 8, (400,), generator=gen, device="cuda")
+    xs[:20] = torch.tensor([W // 4 * (1 + i % 3) - i % 2 for i in range(20)],
+                           device="cuda")
+    data = img.clone()
+    data.index_put_((ys, xs), torch.full((400,), 4000.0, device="cuda"),
+                    accumulate=True)
+    p = dc.replace(ctx.lac_params, windowed=False)
+    inmask = msk != 0
+    with torch.inference_mode():
+        (dclean, dcrm, _), dense_ms = synced(
+            lambda: lacosmic(data, inmask, 10.0, p))
+        (sclean, scrm), shard_ms = synced(
+            lambda: lacosmic_sharded(data, inmask, 10.0, mesh, p))
+    same_tree({"crmask": scrm, "clean": sclean},
+              {"crmask": dcrm, "clean": dclean}, "lacosmic_sharded")
+    print(f"lacosmic_sharded {H}x{W}, {where}: {int(scrm.sum())} cosmic "
+          f"pixels, clean image and mask bit-exact against the dense "
+          f"lacosmic; sharded {shard_ms:.1f} ms, dense {dense_ms:.1f} ms "
+          f"[{card}]")
+    del data, dclean, dcrm, sclean, scrm, inmask
+
+    # extraction: every output of the sharded path bit for bit
+    ctx_e = dc.replace(ctx, bkg_boxsize=264)
+    with torch.inference_mode():
+        dense, dense_ms = synced(lambda: extract_catalog(ctx_e, img, msk))
+        shd, shard_ms = synced(
+            lambda: extract_catalog_sharded(ctx_e, img, msk, mesh))
+    dense.pop("psf"), shd.pop("psf")
+    same_tree(shd, dense, "extract_catalog_sharded")
+    print(f"extract_catalog_sharded {H}x{W}, {where}, box 264: nobjects "
+          f"{int(shd['stats']['nobjects'])}, every plane, column and stat "
+          f"bit-exact against extract_catalog; sharded {shard_ms:.1f} ms, "
+          f"dense {dense_ms:.1f} ms [{card}]")
+    del dense, shd, img, msk
+    torch.cuda.empty_cache()
+
+    # the batched reduce of two full frames on a 2 x 1 mesh
+    geom = ctx.geom
+    frames = []
+    for seed in (12360, 12361):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        frames.append(make_science_device(g, geom, nstars=4000, ncosmics=800,
+                                          trail=True, nsat=20)[:3])
+    batch = tuple(torch.stack([f[k] for f in frames]) for k in range(3))
+    bmesh = make_mesh(2, 1, devs[:2])
+    before = {n: c.launches for n, c in counters().items()}
+    outs, batch_ms = synced(lambda: make_batched_reduce(ctx, bmesh)(
+        *batch, mbias, mflat, None, xtalk))
+    moved = {n: c.launches - before[n] for n, c in counters().items()}
+    if (moved["label_propagate"] != 2 or moved["median_filter"] <= 0
+            or moved["gather_slot_windows"] <= 0):
+        raise AssertionError(f"make_batched_reduce launches {moved}: K1 "
+                             "must run twice, K2 and K4 must run")
+    del batch
+    fn = make_reduce_fn(ctx)
+    single_ms = []
+    for i, f in enumerate(frames):
+        ref, ms = synced(lambda: fn(*f, mbias, mflat, None, xtalk))
+        single_ms.append(ms)
+        same_tree({k: outs[i][k] for k in ("image", "mask", "cat")},
+                  {k: ref[k] for k in ("image", "mask", "cat")},
+                  f"make_batched_reduce frame {i}")
+        same_tree(outs[i]["stats"], {k: ref["stats"][k]
+                                     for k in outs[i]["stats"]},
+                  f"make_batched_reduce frame {i} stats")
+        del ref
+    print(f"make_batched_reduce of 2 MeerLICHT frames on a 2 x 1 mesh "
+          f"({devs[0]}, {devs[1]}): every frame bit-exact against "
+          f"make_reduce_fn, nobjects "
+          f"{[int(o['stats']['nobjects']) for o in outs]}, launches "
+          f"{moved}; {batch_ms:.1f} ms for the batch, "
+          f"{sum(single_ms):.1f} ms one frame at a time [{card}]")
+    del outs, frames
+    torch.cuda.empty_cache()
+
+    # the batched night against phase 7's per-file night on the card
+    gpu, files, stars = tiny
+    base = os.path.dirname(gpu[1])
+    root = os.path.join(base, "batched")
+    shutil.copytree(os.path.join(base, "raw"), root)
+    s = ReductionSettings(geometry=TINY, pixscale=NP.PIXSCALE,
+                          create_ref=True, make_quicklooks=False)
+    s.device_batch = 2
+    pipe = Pipeline(DataTree(root, "ML1"), "ML1", s, NP.tiny_ctx(s),
+                    ref_catalog=NP.ref_catalog(stars, TINY.red_shape),
+                    device="cuda")
+    rep, night_ms = synced(lambda: run_day(pipe, NP.DATE))
+    by_path = {os.path.relpath(p, root): r for p, r in rep.results}
+    rels = [os.path.relpath(f, os.path.join(base, "raw")) for f in files]
+    if rep.batch_fallbacks or sorted(by_path) != sorted(rels):
+        raise AssertionError(f"run_day(device_batch=2): {rep.batch_fallbacks}"
+                             f" fallbacks, frames {sorted(by_path)}")
+    batched = ([by_path[r] for r in rels], root)
+    NP.check_night(batched, gpu, NP.overscan_level(gpu))
+    print(f"run_day(device_batch=2) of the TINY night ({len(files)} frames) "
+          f"on the card: batch_fallbacks 0, statuses, products, keywords "
+          f"and flags, masks bit for bit, images, catalogs and transients "
+          f"against the per-file night on the card; {night_ms:.1f} ms "
+          f"[{card}]")
+
+    _, dry_ms = synced(lambda: dryrun_multichip(4, devices=devs))
+    print(f"dryrun_multichip(4) on {', '.join(map(str, devs))}: "
+          f"{dry_ms:.1f} ms [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2241,8 +2700,11 @@ def main() -> int:
     print(card)
     from blackbox_tpu_torch import kernels
     t0 = time.time()
+    load_previous_k4 = start_previous_k4()
     kernels.lib()
-    print(f"built the CUDA kernels in {time.time() - t0:.1f} s")
+    prev = load_previous_k4()
+    print(f"built the CUDA kernels (and K4's previous design) in "
+          f"{time.time() - t0:.1f} s")
 
     from blackbox_tpu_torch.core.geometry import MEERLICHT
     from blackbox_tpu_torch.ops.cosmics import LACosmicParams
@@ -2257,7 +2719,7 @@ def main() -> int:
     ctx = ctx_for(MEERLICHT)
 
     # phase 2: kernels against their plain versions
-    results = check_kernels(card)
+    results = check_kernels(card, prev)
     torch.cuda.empty_cache()
 
     check_tiny(ctx_for, card)
@@ -2279,6 +2741,9 @@ def main() -> int:
     if c3["label_propagate"] != len(SEEDS):
         raise AssertionError(f"label_propagate: {c3['label_propagate']} "
                              f"launches for {len(SEEDS)} catalog frames")
+    torch.cuda.empty_cache()
+    k4 = next(r for r in results if r["name"] == "gather_slot_windows")
+    k4.update(k4_path_replay(ctx, card, mbias, mflat, xtalk, prev))
     torch.cuda.empty_cache()
 
     # phase 4: raw -> transient catalog
@@ -2324,10 +2789,13 @@ def main() -> int:
     # phase 7: file -> file through the driver, TINY on the card against
     # the CPU, then a full night, its launches counted; phase 8: the
     # reference co-add in that night's tree, its launches counted
-    tiny_night_phase(card)
     import tempfile
     with tempfile.TemporaryDirectory() as root:
-        c7, night = night_phase(ctx, card, root)
+        tiny = tiny_night_phase(card, os.path.join(root, "tiny"))
+        with k4_calls(False) as night_k4:
+            c7, night = night_phase(ctx, card, root)
+        k4_live(night_k4, "phase 7's night", card)
+        del night_k4
         c8, t4 = coadd_phase(card, night)
         torch.cuda.empty_cache()
 
@@ -2337,7 +2805,6 @@ def main() -> int:
         zero_counts()
         unet, prob = unet_phase(card, *frame)
         segment_phase(card, ctx, *frame)
-        del frame
         torch.cuda.empty_cache()
         maps, trans, k1_visit = vetnet_phase(card, night, unet, t4)
         torch.cuda.synchronize()
@@ -2357,12 +2824,26 @@ def main() -> int:
         del prob
         print(f"phase 9: {time.time() - t9:.1f} s [{card}]")
 
+        # phase 10: the multi-device paths on one card, their launches
+        # counted
+        torch.cuda.empty_cache()
+        t10 = time.time()
+        zero_counts()
+        multi_device_phase(ctx, card, frame, tiny, mbias, mflat, xtalk)
+        del frame, tiny
+        c10 = read_counts("multi-device on one card", card,
+                          ("label_propagate", "median_filter",
+                           "gather_slot_windows", "fft_cols_split"))
+        print(f"phase 10: {time.time() - t10:.1f} s [{card}]")
+
     for r in results:
         r["launches"] = (c3[r["name"]] + c4[r["name"]] + c5[r["name"]]
-                         + c7[r["name"]] + c8[r["name"]] + c9[r["name"]])
+                         + c7[r["name"]] + c8[r["name"]] + c9[r["name"]]
+                         + c10[r["name"]])
         r["file_to_file_launches"] = c7[r["name"]]
         r["coadd_phase_launches"] = c8[r["name"]]
         r["networks_phase_launches"] = c9[r["name"]]
+        r["multi_device_phase_launches"] = c10[r["name"]]
         if r["name"] == "label_propagate":
             r.update(k1_unet)
             r["max_abs_err"] = max(r["max_abs_err"], r.pop("unet_err"))

@@ -211,13 +211,17 @@ def test_finding_chart_not_ported(tmp_path, monkeypatch):
 
 def test_device_batch_not_ported(tmp_path):
     """day mode with settings.device_batch > 1 (the JAX package's
-    sharded multi-device batches) is refused, naming parallel/."""
+    sharded multi-device batches) runs on the port: the object frame
+    goes through the batched reduce, with no fallback, and publishes
+    what the per-frame path publishes (the whole night is held to the
+    JAX package by tests/test_torch_parallel.py)."""
     from blackbox_tpu_torch.astro.time import iso2mjd
     from blackbox_tpu_torch.config.defaults import ReductionSettings
     from blackbox_tpu_torch.core.geometry import TINY
     from blackbox_tpu_torch.orchestration.paths import DataTree
     from blackbox_tpu_torch.orchestration.scheduler import run_day
     from blackbox_tpu_torch.pipeline.driver import Pipeline
+    from blackbox_tpu_torch.io.rice import read_rice
     from blackbox_tpu_torch.synth.observation import write_observation
     tree = DataTree(str(tmp_path), "ML1")
     write_observation(os.path.join(tree.raw_dir("20260305"),
@@ -225,10 +229,26 @@ def test_device_batch_not_ported(tmp_path):
                       np.random.default_rng(3), "object",
                       mjd_start=iso2mjd("2026-03-05T23:00:00.000"),
                       nstars=5)
-    s = ReductionSettings(geometry=TINY)
-    s.device_batch = 2
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        run_day(Pipeline(tree, "ML1", s, device="cpu"), "20260305")
+    copy = str(tmp_path / "per_frame")
+    shutil.copytree(str(tmp_path / "ML1"), os.path.join(copy, "ML1"))
+    reports = {}
+    for db, root in ((2, str(tmp_path)), (1, copy)):
+        s = ReductionSettings(geometry=TINY)
+        s.device_batch = db
+        reports[db] = run_day(Pipeline(DataTree(root, "ML1"), "ML1", s,
+                                       device="cpu"), "20260305")
+    (_, got), = reports[2].results
+    (_, want), = reports[1].results
+    assert reports[2].batch_fallbacks == 0
+    assert got.status == want.status == "reduced"
+    assert ([os.path.basename(p) for p in got.products]
+            == [os.path.basename(p) for p in want.products])
+    for k in want.header.keys():
+        if k.endswith("-P"):
+            assert got.header[k] == want.header[k], k
+    for a, b in zip(sorted(got.products), sorted(want.products)):
+        if a.endswith(".fits.fz"):
+            assert np.array_equal(read_rice(a)[0], read_rice(b)[0]), a
 
 
 def test_read_path_filters_and_genlog(tmp_path):

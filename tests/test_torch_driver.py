@@ -336,11 +336,44 @@ def test_unported_branches_raise(name, tmp_path):
     assert getattr(pipe, attr) == want
 
 
-def test_device_override_raises(tmp_path):
-    pipe = tdriver.Pipeline(DataTree(str(tmp_path), "ML1"), "ML1",
-                            ReductionSettings(geometry=TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        pipe.process_file(str(tmp_path / "x.fits"), device_override={})
+def test_device_override_raises(nights, tmp_path):
+    """process_file(device_override=...) (the batched runner's
+    precomputed device work) no longer raises: the first visit, reduced
+    again in a copy of the night's tree from the outputs of the port's
+    own calibrate + extract, publishes the same header and mask as the
+    night's per-frame run, and the override's image is what it
+    writes."""
+    from blackbox_tpu_torch.io.rice import read_rice
+    from blackbox_tpu_torch.orchestration.paths import night_date
+    from blackbox_tpu_torch.pipeline.reduce import (calibrate_detector,
+                                                    extract_catalog)
+    root = str(tmp_path / "copy")
+    shutil.copytree(nights["port"][1], root)
+    rel = nights["files"][6]
+    want = nights["port"][0][6]
+    pipe = nights["make"]("port", root)
+    raw, _ = tdriver.read_fits(os.path.join(root, rel))[0]
+    chan, osv, osh = pipe.geom.split_raw(pipe._upload_raw(raw))
+    d = night_date(float(want.header["MJD-OBS"]), pipe.site[1])
+    mf, _ = pipe.masters.ensure_master("flat", d, pipe.geom, filt="q")
+    mflat = pipe.geom.disassemble(torch.as_tensor(np.asarray(mf,
+                                                             np.float32)))
+    with torch.inference_mode():
+        sci, mask, stats = calibrate_detector(
+            pipe.ctx, chan, osv, osh, None, mflat, None, None, None)
+        ext = extract_catalog(pipe.ctx, sci, mask)
+    res = pipe.process_file(os.path.join(root, rel), force=True,
+                            device_override={"sci": sci, "mask": mask,
+                                             "stats": stats, "ext": ext})
+    assert res.status == want.status == "reduced", res.error
+    assert res.header["MFLAT-P"] is True
+    for k in want.header.keys():
+        if k.endswith("-P"):
+            assert res.header[k] == want.header[k], k
+    for p in res.products:
+        if p.endswith("_mask.fits.fz"):
+            q = os.path.join(nights["port"][1], os.path.relpath(p, root))
+            assert np.array_equal(read_rice(p)[0], read_rice(q)[0])
 
 
 def test_pipeline_defaults_to_the_card(nights, tmp_path):

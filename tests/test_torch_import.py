@@ -97,6 +97,11 @@ SLICE_MODULES = [
     "blackbox_tpu_torch.orchestration.pubsub",
     "blackbox_tpu_torch.io.fakegcs",
     "blackbox_tpu_torch.utils.watchdog",
+    "blackbox_tpu_torch.parallel",
+    "blackbox_tpu_torch.parallel.mesh",
+    "blackbox_tpu_torch.parallel.extract",
+    "blackbox_tpu_torch.parallel.distributed",
+    "blackbox_tpu_torch.parallel.dryrun",
 ]
 
 # Host modules copied from blackbox_tpu, by dotted path under each
@@ -144,9 +149,12 @@ HOST_COPIES = {
                       "place"},
     "orchestration.ingest": {},
     "orchestration.scheduler": {
-        "_run_batched_objects": "raises NotImplementedError naming "
-                                "parallel/: the sharded multi-device "
-                                "batches are not ported yet"},
+        "RunReport": "counts the frames of a failed device batch that "
+                     "fell back to the per-frame path",
+        "_run_batched_objects": "splits each chunk over the cards with "
+                                "the port's map_batch (PyTorch runs "
+                                "eagerly: no jit or shard_map) and counts "
+                                "fallbacks"},
     "report.obslog": {},
     "__main__": {
         "build_parser": "the program's name and description",
@@ -179,6 +187,7 @@ HOST_FUNCTIONS = [
     ("models.trailnet", "TrailNetConfig"),
     ("models.trailnet", "synth_batch"), ("models.trailnet", "_layer_order"),
     ("models.vetnet", "_gauss"), ("models.vetnet", "synth_batch"),
+    ("parallel.distributed", "_first_host"),
 ]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
