@@ -29,3 +29,13 @@ BITS = {
     "edge": EDGE,
     "crosstalk": CROSSTALK,
 }
+
+# header keyword per bit, matching the reference's mask_header keys
+HEADER_KEYS = {
+    "bad": ("M-BP", "M-NBP"),
+    "cosmic": ("M-CRP", "M-NCR"),
+    "saturated": ("M-SP", "M-NSP"),
+    "saturated-connected": ("M-SCP", "M-NSCP"),
+    "satellite": ("M-STP", "M-NSTP"),
+    "edge": ("M-EP", "M-NEP"),
+}

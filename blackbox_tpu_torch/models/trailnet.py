@@ -258,34 +258,32 @@ def convert_keras_weights(h5_path: str) -> dict:
     :func:`from_jax_params`.  The transposed kernels are not mirrored,
     as in the JAX package: a keras transposed convolution applies its
     kernel mirrored relative to flax's, so the result reproduces the JAX
-    package's network, not keras's.  Needs ``h5py``.
+    package's network, not keras's.  The file is read by the port's own
+    HDF5 reader (:mod:`blackbox_tpu_torch.io.hdf5`), so no ``h5py`` is
+    needed; a format it does not read raises ``ValueError``.
     """
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError("convert_keras_weights needs h5py to read "
-                          f"{h5_path}") from e
+    from blackbox_tpu_torch.io import hdf5
 
     flat = _flax_template(TrailUNet())
     ours = sorted(flat.keys(), key=lambda kp: _layer_order(kp))
 
     kio = []
-    with h5py.File(h5_path, "r") as f:
-        root = f["model_weights"] if "model_weights" in f else f
-        names = list(root.attrs.get("layer_names", [])) or list(root)
-        for name in names:
-            name = name.decode() if isinstance(name, bytes) else name
-            if name not in root:
-                continue
-            grp = root[name]
-            ds = {}
-            grp.visititems(
-                lambda p, obj: ds.__setitem__(p.rsplit("/", 1)[-1], obj)
-                if hasattr(obj, "shape") else None)
-            if "kernel:0" in ds:
-                b = ds.get("bias:0")
-                kio.append((name, np.array(ds["kernel:0"]),
-                            np.array(b) if b is not None else None))
+    f = hdf5.open(h5_path)
+    root = f["model_weights"] if "model_weights" in f else f
+    names = list(root.attrs.get("layer_names", [])) or list(root)
+    for name in names:
+        name = name.decode() if isinstance(name, bytes) else name
+        if name not in root:
+            continue
+        grp = root[name]
+        ds = {}
+        grp.visititems(
+            lambda p, obj: ds.__setitem__(p.rsplit("/", 1)[-1], obj)
+            if hasattr(obj, "shape") else None)
+        if "kernel:0" in ds:
+            b = ds.get("bias:0")
+            kio.append((name, np.array(ds["kernel:0"]),
+                        np.array(b) if b is not None else None))
 
     kernels = [kp for kp in ours if kp[-1] == "kernel"]
     if len(kio) != len(kernels):
@@ -337,12 +335,99 @@ def _layer_order(key_path) -> tuple:
             parts[-1])
 
 
+def _kernel_to_flax(kind: str, w: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_kernel_to_torch`."""
+    if kind == "dense":
+        return w.T
+    if kind == "transpose":
+        return w.transpose(2, 3, 0, 1)[::-1, ::-1]
+    return w.transpose(2, 3, 1, 0)
+
+
+def to_jax_params(params: dict) -> dict:
+    """The inverse of :func:`from_jax_params`: a state dict as the flax
+    tree ``{"params": {...}}``, float32 numpy leaves, kernels in flax's
+    layout (transposed kernels mirrored back), every map's keys sorted
+    as ``jax.tree_util`` leaves a tree."""
+    tree: dict = {}
+    for name, v in params.items():
+        parts = name.split(".")
+        a = v.detach().cpu().numpy().astype(np.float32)
+        if parts[-1] == "weight":
+            a = _kernel_to_flax(_layer_kind(parts[-2]), a)
+            parts[-1] = "kernel"
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(a)
+
+    def ordered(d):
+        return {k: ordered(d[k]) if isinstance(d[k], dict) else d[k]
+                for k in sorted(d)}
+    return {"params": ordered(tree)}
+
+
+def write_params(path: str, params: dict, model: nn.Module) -> None:
+    """``params`` (a state dict of ``model``) as the flax msgpack file
+    the JAX package's ``save_params`` writes and its ``load_params``
+    reads (:mod:`blackbox_tpu_torch.io.flaxmsgpack`)."""
+    from blackbox_tpu_torch.io import flaxmsgpack
+    want = {k: tuple(p.shape) for k, p in model.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in params.items()}
+    if got != want:
+        raise ValueError(f"not a {type(model).__name__} state dict: "
+                         f"{sorted(set(got.items()) ^ set(want.items()))} "
+                         f"differ from its keys and shapes")
+    with open(path, "wb") as fh:
+        fh.write(flaxmsgpack.encode(to_jax_params(params)))
+
+
+def read_params(path: str, model: nn.Module) -> dict:
+    """A state dict of ``model`` from ``path``: a flax msgpack file (as
+    the JAX package's ``save_params`` and :func:`write_params` write
+    it), its leaves held to ``model``'s flax template (every key
+    present, none extra, shapes equal) and carried across by
+    :func:`from_jax_params`; or a zip, a state dict that ``torch.save``
+    wrote (the port's files before it wrote flax's format)."""
+    from blackbox_tpu_torch.io import flaxmsgpack
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:4] == b"PK\x03\x04":
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if not data or not (0x80 <= data[0] <= 0x8F or data[0] in (0xDE, 0xDF)):
+        raise ValueError(f"{path}: neither a flax msgpack map nor a torch "
+                         f"zip file")
+    tree = flaxmsgpack.decode(data)
+    if list(tree) != ["params"] or not isinstance(tree["params"], dict):
+        raise ValueError(f"{path}: top-level keys {list(tree)}, expected "
+                         f"['params']")
+    flat = dict(_flatten(tree["params"]))
+    template = _flax_template(model)
+    if flat.keys() != template.keys():
+        raise ValueError(
+            f"{path}: not a {type(model).__name__}: missing "
+            f"{sorted('/'.join(k) for k in template.keys() - flat.keys())}, "
+            f"extra {sorted('/'.join(k) for k in flat.keys() - template.keys())}")
+    for k, want in template.items():
+        leaf = flat[k]
+        if not isinstance(leaf, np.ndarray) or leaf.shape != want.shape:
+            raise ValueError(
+                f"{path}: {'/'.join(k)} is "
+                f"{getattr(leaf, 'shape', type(leaf).__name__)}, "
+                f"expected {want.shape}")
+    state = _state_from_flat(flat)
+    return {k: state[k] for k in model.state_dict()}
+
+
 def save_params(path: str, params):
-    torch.save({k: v.detach().cpu() for k, v in params.items()}, path)
+    """U-Net parameters (a state dict) as the JAX package's flax file."""
+    write_params(path, params, TrailUNet())
 
 
 def load_params(path: str) -> dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """U-Net parameters from a file either package's ``save_params``
+    wrote (:func:`read_params`)."""
+    return read_params(path, TrailUNet())
 
 
 # --------------------------------------------------------- training

@@ -7,7 +7,9 @@ JAX package's synthetic training loop (real = PSF-shaped residual in
 D/SCORR; bogus = cosmic spikes, dipoles from registration error, hot
 columns, noise flukes).  The layers are ``torch.nn``'s, named as the
 flax modules are, so a flax parameter tree carries across with
-:func:`blackbox_tpu_torch.models.trailnet.from_jax_params`.
+:func:`blackbox_tpu_torch.models.trailnet.from_jax_params`, and
+:func:`save_params` / :func:`load_params` write and read the JAX
+package's flax weight files.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from blackbox_tpu_torch.models.trailnet import (  # noqa: F401
-    _lecun_init, fit, from_jax_params, load_params, save_params)
+    _lecun_init, fit, from_jax_params, read_params, write_params)
 from blackbox_tpu_torch.ops.stats import median
 
 
@@ -95,6 +97,18 @@ def score_transients(params, new_img, ref_img, D, scorr, xs, ys,
 def init_params(generator: torch.Generator) -> dict:
     """Random VetNet parameters (a state dict on the CPU)."""
     return _lecun_init(VetNet(), generator)
+
+
+def save_params(path: str, params):
+    """VetNet parameters (a state dict) as the JAX package's flax file."""
+    write_params(path, params, VetNet())
+
+
+def load_params(path: str) -> dict:
+    """VetNet parameters from a file either package's ``save_params``
+    wrote, held to the VetNet template (Dense kernels in their own
+    layout)."""
+    return read_params(path, VetNet())
 
 
 # ----------------------------------------------------------- training

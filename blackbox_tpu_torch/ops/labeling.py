@@ -7,6 +7,8 @@
   the quads are bool planes, and the counts are the same integers.
 * :func:`label_components` — bounded min-label propagation, on the card
   through the CUDA kernel ``csrc/labelprop.cu`` (:func:`label_propagate`).
+* :func:`count_components` — the components :func:`label_components`
+  finds (K1 on the card); :func:`count_components_host` — scipy's count.
 """
 
 from __future__ import annotations
@@ -102,3 +104,24 @@ def label_components(mask: torch.Tensor, iters: int = 64) -> torch.Tensor:
     lab = torch.where(mask, idx, H * W + 2)
     lab = label_propagate(lab, iters)
     return torch.where(mask, lab, 0)
+
+
+def count_components(mask: torch.Tensor, iters: int = 64) -> torch.Tensor:
+    """8-connected component count via labeling: the pixels that hold
+    their own label (exact when ``iters`` steps reach across every
+    component)."""
+    lab = label_components(mask, iters=iters)
+    H, W = mask.shape
+    idx = torch.arange(1, H * W + 1, dtype=torch.int32,
+                       device=mask.device).reshape(H, W)
+    return torch.sum((lab == idx) & mask)
+
+
+def count_components_host(mask) -> int:
+    """Exact 8-connected component count on the host (scipy)."""
+    import numpy as np
+    from scipy import ndimage
+    if isinstance(mask, torch.Tensor):
+        mask = mask.cpu().numpy()
+    _, n = ndimage.label(np.asarray(mask), structure=np.ones((3, 3), bool))
+    return int(n)

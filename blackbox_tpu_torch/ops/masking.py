@@ -76,3 +76,10 @@ def _union_excl_self(stack):
     """OR over the leading axis, excluding each element itself."""
     cnt = torch.sum(stack, dim=0, dtype=torch.int32)
     return (cnt - stack.to(torch.int32)) > 0
+
+
+def mask_counts(mask: torch.Tensor) -> dict:
+    """Per-bit pixel counts for the M-*NUM mask-header keys, by bit
+    name (0-d tensors on the mask's device)."""
+    return {name: torch.sum((mask & bit) == bit)
+            for name, bit in maskbits.BITS.items()}

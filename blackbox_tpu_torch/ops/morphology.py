@@ -1,5 +1,5 @@
-"""Binary morphology: hole fill and the saturation close/fill (port of
-:mod:`blackbox_tpu.ops.morphology`).
+"""Binary morphology: dilation, erosion, closing, hole fill and the
+saturation close/fill (port of :mod:`blackbox_tpu.ops.morphology`).
 
 The JAX package runs these on bit-packed words, a TPU memory-layout
 device; here they run on bool planes with the same operations, so every
@@ -10,6 +10,7 @@ pixel (and every count made from them) is the same.  All functions take
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _shift(x: torch.Tensor, d: int, dim: int, fill: bool) -> torch.Tensor:
@@ -38,13 +39,49 @@ def _erode3(m: torch.Tensor) -> torch.Tensor:
     return v & _shift(v, 1, -1, True) & _shift(v, -1, -1, True)
 
 
-def fill_holes(m: torch.Tensor, iterations: int = 3) -> torch.Tensor:
+def _pool(m: torch.Tensor, size: int) -> torch.Tensor:
+    """Max of each ``size`` x ``size`` window of ``m`` padded with
+    ``size // 2`` False pixels on every side (the JAX package's window
+    reduction, so an even size grows the plane by one)."""
+    H, W = m.shape[-2], m.shape[-1]
+    p = size // 2
+    x = F.pad(m.reshape(-1, 1, H, W).to(torch.float32), (p, p, p, p))
+    out = F.max_pool2d(x, size, stride=1) > 0.5
+    return out.reshape(m.shape[:-2] + out.shape[-2:])
+
+
+def binary_dilation(m: torch.Tensor, iterations: int = 1,
+                    size: int = 3) -> torch.Tensor:
+    """Dilation with a full ``size`` x ``size`` structure, ``iterations``
+    times (scipy's border: outside the frame False)."""
+    for _ in range(iterations):
+        m = _dilate3(m) if size == 3 else _pool(m, size)
+    return m
+
+
+def binary_erosion(m: torch.Tensor, iterations: int = 1,
+                   size: int = 3) -> torch.Tensor:
+    """Erosion with a full structure, ``iterations`` times (outside the
+    frame True, scipy's ``border_value=1``)."""
+    for _ in range(iterations):
+        m = _erode3(m) if size == 3 else ~_pool(~m, size)
+    return m
+
+
+def binary_closing(m: torch.Tensor, size: int = 3) -> torch.Tensor:
+    """Dilation then erosion, each with its own border rule."""
+    return binary_erosion(binary_dilation(m, size=size), size=size)
+
+
+def fill_holes(m: torch.Tensor, iterations: int = 3,
+               size: int = 3) -> torch.Tensor:
     """Fill background regions not connected to the frame border.
 
     The complement is flooded from the border by ``iterations`` rounds
     of four directional sweeps (down, up, right, left); each sweep is a
     log-doubling segmented scan, R <- R | (shift(R, d) & O_run),
-    O_run <- O_run & shift(O_run, d), d doubling.
+    O_run <- O_run & shift(O_run, d), d doubling.  ``size`` is the JAX
+    package's parameter, which it does not use either.
     """
     H, W = m.shape[-2], m.shape[-1]
     O = ~m

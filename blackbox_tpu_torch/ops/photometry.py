@@ -48,3 +48,8 @@ def aperture_photometry(image_bksub, bkg_std, xs, ys, radii,
     err2 = torch.sum(covg * var[:, None], dim=(2, 3)) \
         + torch.clamp(flux, min=0.0)
     return flux, torch.sqrt(err2)
+
+
+def snr_optimal(flux, fluxerr):
+    """flux / fluxerr, the error floored at 1e-9."""
+    return flux / torch.clamp(fluxerr, min=1e-9)

@@ -89,19 +89,21 @@ def masked_median(x, mask=None, axis=-1):
 
 
 def sigma_clip(x, mask=None, axis=None, sigma: float = 3.0,
-               iters: int = 5):
+               iters: int = 5, cenfunc: str = "mean"):
     """Fixed-iteration sigma clipping.  Returns the final exclusion mask.
 
-    Center per iteration is the mean of the kept values, scale their
-    std (ddof=0); values outside ``center -/+ sigma * std`` are
-    excluded (the JAX package's ``cenfunc="mean"``, the only centre the
-    reduction uses).
+    Center per iteration is the mean (``cenfunc="mean"``) or the median
+    (``"median"``) of the kept values, scale their std (ddof=0); values
+    outside ``center -/+ sigma * std`` are excluded.
     """
     if mask is None:
         mask = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     m = mask | ~torch.isfinite(x)
     for _ in range(iters):
         center, std = masked_mean_std(x, m, axis=axis)
+        if cenfunc == "median":
+            center = (masked_median(x.reshape(-1), m.reshape(-1), axis=0)
+                      if axis is None else masked_median(x, m, axis=axis))
         center = _expand(center, axis)
         std = _expand(std, axis)
         new_m = m | (x < center - sigma * std) | (x > center + sigma * std)
@@ -177,3 +179,11 @@ def sigma_clipped_mean_std(x, mask=None, axis=None, sigma: float = 3.0,
     """astropy ``sigma_clipped_stats``-style (mean, std) after clipping."""
     m = sigma_clip(x, mask=mask, axis=axis, sigma=sigma, iters=iters)
     return masked_mean_std(x, m, axis=axis)
+
+
+def sigma_clipped_median(x, mask=None, axis=-1, sigma: float = 3.0,
+                         iters: int = 5, cenfunc: str = "median"):
+    """Median of the values that sigma clipping keeps along ``axis``."""
+    m = sigma_clip(x, mask=mask, axis=axis, sigma=sigma, iters=iters,
+                   cenfunc=cenfunc)
+    return masked_median(x, m, axis=axis)

@@ -16,6 +16,15 @@ import torch
 from blackbox_tpu_torch.core import maskbits
 
 
+def coeff_quadrants(coeffs, nx: int):
+    """Split a (C, C) source->victim matrix into its same-row and
+    cross-row parts (channels in rows of ``nx``), on its device."""
+    coeffs = torch.as_tensor(coeffs)
+    row = torch.arange(coeffs.shape[0], device=coeffs.device) // nx
+    same = row[:, None] == row[None, :]
+    return coeffs * same, coeffs * ~same
+
+
 def xtalk_correct(chan_data, mask, coeffs, nx: int = 8):
     """Subtract crosstalk from a channel stack.
 

@@ -20,9 +20,9 @@ statistics) converts with ``.cpu()``.
 The solar-system matching (``sso_elements``, ``mpcorb_file``) and the
 blind astrometric solve (``blind_index``) are host code, as in the JAX
 package.  The U-Net trail segmentation (``trailnet_params``, or
-``use_unet_sat`` with ``sat_model_path``: a keras ``.h5``/``.hdf5``/
-``.keras`` file or a state dict saved by
-:func:`blackbox_tpu_torch.models.trailnet.save_params`) and the
+``use_unet_sat`` with ``sat_model_path``: a keras 2 ``.h5``/``.hdf5``
+file, or a flax msgpack file written by either package's
+``save_params``, read without h5py or flax) and the
 real/bogus network (``vetnet_params``) run on ``device`` (their state
 dicts; :func:`blackbox_tpu_torch.models.trailnet.from_jax_params`
 carries the JAX package's flax parameters across).  The batched

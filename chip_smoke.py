@@ -119,9 +119,15 @@ Phases, each printing its own lines:
    frame's own segment count, which the trail's ghost lines set, a
    reference fault), and the two passes on the card against
    the CPU on the frame's lower-left quarter; the real/bogus CNN trained
-   on the card (400 steps of 32), then a fifth visit of phase 7's field
-   (NTRANS new transients) through ``Pipeline.process_file`` with both
-   networks against phase 8's co-add: ASTA-P and SATELLITE bits; where
+   on the card (400 steps of 32); both networks written with the port's
+   ``save_params`` (the JAX package's flax msgpack files) and read back
+   with ``load_params``, bit-equal; a line saying whether flax, msgpack
+   and h5py import on this machine (for information: nothing here
+   needs them); then a fifth visit of phase 7's field (NTRANS new
+   transients) through ``Pipeline.process_file`` with
+   ``use_unet_sat=True`` and ``sat_model_path`` naming the U-Net's file
+   and the CNN's parameters as read back from its file, against phase
+   8's co-add: ASTA-P and SATELLITE bits; where
    the U-Net's mask sends it to QC red through S-ELOSTD (the moments
    fault of phase 7), again with the real/bogus network alone: MC-P, at
    least 16 transients, CLASS_REAL in [0, 1], ``score_transients`` on
@@ -2329,13 +2335,74 @@ def segment_phase(card, ctx, image, mask):
           f"the masks' edges; CPU {cpu_s:.1f} s [{card}]")
 
 
-def vetnet_phase(card, night, unet, t4):
-    """Phase 9, third part: the real/bogus CNN trained on the card, then
-    a fifth visit of phase 7's field (its own noise and cosmics, moved
+def same_bits(a: dict, b: dict, what: str) -> None:
+    """Two state dicts with the same keys, shapes, dtypes and bits."""
+    if list(a) != list(b):
+        raise AssertionError(f"{what}: keys {list(a)} against {list(b)}")
+    for k in a:
+        x, y = a[k].detach().cpu(), b[k].detach().cpu()
+        if (x.shape != y.shape or x.dtype != y.dtype
+                or not torch.equal(x.view(torch.int32), y.view(torch.int32))):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def optional_imports() -> dict:
+    """Whether flax, msgpack and h5py import here, tried in a child
+    process (for information: the port needs none of them)."""
+    code = ("import importlib, json\n"
+            "out = {}\n"
+            "for m in ('flax', 'msgpack', 'h5py'):\n"
+            "    try:\n"
+            "        importlib.import_module(m)\n"
+            "        out[m] = True\n"
+            "    except Exception:\n"
+            "        out[m] = False\n"
+            "print(json.dumps(out))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def weight_files(card, root, unet, vparams):
+    """Both networks written with the port's save_params under ``root``
+    (flax msgpack, the JAX package's format) and read back with
+    load_params, bit-equal.  Returns (U-Net file, CNN parameters read
+    back)."""
+    from blackbox_tpu_torch.models import trailnet, vetnet
+    wdir = os.path.join(root, "weights")
+    os.makedirs(wdir, exist_ok=True)
+    upath = os.path.join(wdir, "unet.msgpack")
+    vpath = os.path.join(wdir, "vetnet.msgpack")
+    t0 = time.perf_counter()
+    trailnet.save_params(upath, unet)
+    vetnet.save_params(vpath, vparams)
+    t1 = time.perf_counter()
+    unet_back = trailnet.load_params(upath)
+    vback = vetnet.load_params(vpath)
+    t2 = time.perf_counter()
+    same_bits(unet_back, unet, "U-Net file")
+    same_bits(vback, vparams, "real/bogus CNN file")
+    print(f"weight files: U-Net {os.path.getsize(upath)} B and CNN "
+          f"{os.path.getsize(vpath)} B written by save_params (flax "
+          f"msgpack) in {(t1 - t0) * 1e3:.1f} ms, read back by load_params "
+          f"bit-equal in {(t2 - t1) * 1e3:.1f} ms (host) [{card}]")
+    print(f"optional packages importable here (not used): "
+          f"{json.dumps(optional_imports())}")
+    return upath, vback
+
+
+def vetnet_phase(card, night, unet, t4, root):
+    """Phase 9, third part: the real/bogus CNN trained on the card, both
+    networks through their weight files (``weight_files``), then a
+    fifth visit of phase 7's field (its own noise and cosmics, moved
     FIFTH_SHIFT px, NTRANS new transients) file to file through a
-    Pipeline with both networks, against the co-add of phase 8: ASTA-P
-    and the U-Net's SATELLITE bits.  Where the U-Net's mask sends the
-    frame to QC red through S-ELOSTD (a fault of the reference), the
+    Pipeline that loads the U-Net from its file (``use_unet_sat=True``,
+    ``sat_model_path``) and takes the CNN as read back from its file,
+    against the co-add of phase 8: ASTA-P and the U-Net's SATELLITE
+    bits.  No keras file can be made here (this machine has no HDF5
+    writer), so the keras route is held on the CPU in tier-1, with h5py
+    blocked (tests/test_torch_weights.py).  Where the U-Net's mask sends
+    the frame to QC red through S-ELOSTD (a fault of the reference), the
     same raw frame runs again with the real/bogus network alone for its
     gates: MC-P, the transients, CLASS_REAL.  The maps and candidates
     the driver scores are kept for the card-CPU check.  Returns them
@@ -2353,6 +2420,7 @@ def vetnet_phase(card, night, unet, t4):
     torch.cuda.synchronize()
     print(f"real/bogus CNN trained on the card: 400 steps of 32 synthetic "
           f"32² stamp stacks in {time.time() - t0:.1f} s [{card}]")
+    upath, vparams = weight_files(card, root, unet, vparams)
     pipe0 = night["pipe"]
     geom = pipe0.geom
     H, W = geom.red_shape
@@ -2374,13 +2442,23 @@ def vetnet_phase(card, night, unet, t4):
     del stacks, stars5
     k1 = []
 
-    def run(force=False, **nets):
-        """The fifth visit through a Pipeline with ``nets``; the maps and
-        candidates it scores are kept.  K1 runs once for the catalog,
-        once for the U-Net's area filter and once for the subtraction's
+    def run(force=False, sat_model_path=None, **nets):
+        """The fifth visit through a Pipeline with ``nets``, and the U-Net
+        from ``sat_model_path`` where given; the maps and candidates it
+        scores are kept.  K1 runs once for the catalog, once for the
+        U-Net's area filter and once for the subtraction's
         transients."""
-        pipe = driver.Pipeline(night["tree"], "ML1", night["settings"],
+        settings = night["settings"]
+        if sat_model_path is not None:
+            settings = dataclasses.replace(settings, use_unet_sat=True,
+                                           sat_model_path=sat_model_path)
+        pipe = driver.Pipeline(night["tree"], "ML1", settings,
                                pipe0.ctx, ref_catalog=night["query"], **nets)
+        if sat_model_path is not None:
+            if pipe.trailnet_params is None:
+                raise AssertionError(f"the driver did not load the U-Net "
+                                     f"from {sat_model_path}")
+            same_bits(pipe.trailnet_params, unet, "the driver's U-Net")
         seen = []
         score = vetnet.score_transients
 
@@ -2396,7 +2474,7 @@ def vetnet_phase(card, night, unet, t4):
             vetnet.score_transients = score
         if r.status != "reduced":
             raise AssertionError(f"fifth visit: {r.status} {r.error}")
-        want = (1 + ("trailnet_params" in nets)
+        want = (1 + (sat_model_path is not None)
                 + (r.header.get("TRANS-P") is True))
         k1.append(labeling.label_propagate.launches - before)
         if k1[-1] != want:
@@ -2404,7 +2482,7 @@ def vetnet_phase(card, night, unet, t4):
                                  f"launches, {want} expected")
         return r, seen
 
-    r1, seen = run(trailnet_params=unet, vetnet_params=vparams)
+    r1, seen = run(sat_model_path=upath, vetnet_params=vparams)
     h1 = r1.header
     mask_p = [q for q in r1.products if q.endswith("_mask.fits.fz")][0]
     nsat = int(((read_rice(mask_p)[0] & maskbits.SATELLITE) != 0).sum())
@@ -2412,7 +2490,8 @@ def vetnet_phase(card, night, unet, t4):
         raise AssertionError(f"fifth visit: ASTA-P {h1.get('ASTA-P')}, "
                              f"{nsat} SATELLITE pixels")
     reds = [str(h1[k]) for k in h1.keys() if k.startswith("QCRED")]
-    print(f"fifth visit with both networks: ASTA-P true, {nsat} SATELLITE "
+    print(f"fifth visit with both networks (the U-Net from its file): "
+          f"ASTA-P true, {nsat} SATELLITE "
           f"pixels in the published mask, QC {r1.qc_flag} "
           f"({', '.join(reds) or 'no red keys'}), NOBJECTS "
           f"{h1.get('NOBJECTS')}, S-ELOSTD {h1.get('S-ELOSTD')} [{card}]")
@@ -2806,7 +2885,7 @@ def main() -> int:
         unet, prob = unet_phase(card, *frame)
         segment_phase(card, ctx, *frame)
         torch.cuda.empty_cache()
-        maps, trans, k1_visit = vetnet_phase(card, night, unet, t4)
+        maps, trans, k1_visit = vetnet_phase(card, night, unet, t4, root)
         torch.cuda.synchronize()
         c9 = read_counts("networks and segment mode", card,
                          ("label_propagate", "median_filter",

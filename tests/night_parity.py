@@ -445,11 +445,12 @@ def lost_pointing_visit(root, stars):
     return path
 
 
-def net_visit(root, stars):
-    """A further visit of ``tiny_night``'s field at 23:55, pointed as the
-    first, with the transient where the second has it (``stars`` plus
-    TRANS, its night's flat response), written into the raw tree under
-    ``root`` for the networks' run.  Returns its path."""
+def net_visit(root, stars, at="23:55:00"):
+    """A further visit of ``tiny_night``'s field at ``at`` (UT, the same
+    pixels whatever the time), pointed as the first, with the transient
+    where the second has it (``stars`` plus TRANS, its night's flat
+    response), written into the raw tree under ``root`` for the
+    networks' run.  Returns its path."""
     from blackbox_tpu_torch.astro.time import iso2mjd
     from blackbox_tpu_torch.core.geometry import TINY
     from blackbox_tpu_torch.orchestration.paths import DataTree
@@ -457,9 +458,9 @@ def net_visit(root, stars):
     from blackbox_tpu_torch.synth.observation import write_observation
     flat = _vignette_flat(TINY, np.random.default_rng(11))
     path = os.path.join(DataTree(root, "ML1").raw_dir(DATE),
-                        f"ML1_{DATE}_235500.fits")
+                        f"ML1_{DATE}_{at.replace(':', '')}.fits")
     write_observation(path, TINY, np.random.default_rng(8), "object",
-                      mjd_start=iso2mjd("2026-03-01T23:55:00.000"),
+                      mjd_start=iso2mjd(f"2026-03-01T{at}.000"),
                       nstars=0, ncosmics=4, trail=False, nsat=0,
                       sky_e=300.0, ra_deg=RA0, dec_deg=DEC0,
                       stars=np.concatenate([stars, [[*TRANS, 3.0]]]),

@@ -1129,3 +1129,47 @@ def test_trail_segments_card_matches_cpu(dev):
     assert (n0, k0) == (n1, k1) and n0 == 1
     NP.mask_edge_flips(m1.numpy(), m0.numpy())
     NP.mask_edge_flips(s1.numpy(), s0.numpy())
+
+
+@pytest.mark.parametrize("frac, iters", [(0.2, 64), (0.35, 64), (0.5, 8)])
+def test_count_components_on_card(dev, frac, iters):
+    """count_components on the card launches K1 once and counts what the
+    CPU's plain labeling counts; at 64 steps, what scipy counts."""
+    from blackbox_tpu_torch.ops import labeling
+    g = torch.Generator().manual_seed(int(frac * 100))
+    m = torch.rand((301, 517), generator=g) < frac
+    before = labeling.label_propagate.launches
+    got = labeling.count_components(m.to(dev), iters=iters)
+    assert labeling.label_propagate.launches == before + 1
+    assert got.device.type == "cuda"
+    want = labeling.count_components(m, iters=iters)
+    assert int(got) == int(want)
+    if iters == 64 and frac < 0.3:
+        assert int(got) == labeling.count_components_host(m)
+
+
+@pytest.mark.parametrize("size", [3, 5])
+def test_binary_morphology_on_card(dev, size):
+    from blackbox_tpu_torch.ops import morphology as M
+    g = torch.Generator().manual_seed(size)
+    m = torch.rand((257, 1031), generator=g) < 0.4
+    for fn in (lambda x: M.binary_dilation(x, iterations=2, size=size),
+               lambda x: M.binary_erosion(x, iterations=2, size=size),
+               lambda x: M.binary_closing(x, size=size)):
+        _same(fn(m.to(dev)).cpu(), fn(m))
+
+
+@pytest.mark.parametrize("net", ["trailnet", "vetnet"])
+def test_weight_file_round_trip_from_card(dev, net, tmp_path):
+    """Parameters on the card written by save_params (flax msgpack) and
+    read back by load_params, bit for bit."""
+    from blackbox_tpu_torch.models import trailnet, vetnet
+    mod = trailnet if net == "trailnet" else vetnet
+    params = {k: v.to(dev) for k, v in
+              mod.init_params(torch.Generator().manual_seed(3)).items()}
+    path = str(tmp_path / f"{net}.msgpack")
+    mod.save_params(path, params)
+    back = mod.load_params(path)
+    assert list(back) == list(params)
+    for k in params:
+        _same_bits(back[k], params[k].cpu())

@@ -45,9 +45,13 @@ a blind-solve quad index over the calibration stars (``blind_index``).
 After the night a third visit, whose header points half a degree off,
 goes through both: the seeded solve fails and the blind solve finds the
 frame, with the same flags, match counts and solution in both; the SSO
-columns of the transient catalog are equal.
+columns of the transient catalog are equal.  Two more visits carry the
+networks: the first with parameters carried across in memory, the
+second with the U-Net loaded by both drivers from one file the JAX
+package's ``save_params`` wrote (``sat_model_path``).
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -91,12 +95,17 @@ def nights(tmp_path_factory):
     ctx = ReduceContext.from_reference(jctx)
     assert ctx == NP.tiny_ctx(s)
 
-    def make(side, root, **extra):
+    def make(side, root, settings=None, **extra):
+        """A side's Pipeline over ``root``; ``settings`` (a dict) updates
+        the night's settings."""
         if side == "jax":
-            return JPipeline(JTree(root, "ML1"), "ML1", js, jctx,
-                             ref_catalog=query, **extra)
-        return tdriver.Pipeline(DataTree(root, "ML1"), "ML1", s, ctx,
-                                ref_catalog=query, device="cpu", **extra)
+            return JPipeline(JTree(root, "ML1"), "ML1",
+                             dataclasses.replace(js, **(settings or {})),
+                             jctx, ref_catalog=query, **extra)
+        return tdriver.Pipeline(DataTree(root, "ML1"), "ML1",
+                                dataclasses.replace(s, **(settings or {})),
+                                ctx, ref_catalog=query, device="cpu",
+                                **extra)
 
     for side in ("jax", "port"):
         root = os.path.join(base, side)
@@ -501,6 +510,7 @@ def net_visit(nights):
             unet = _sharp_params(TINY.assemble(chan), key=2, frac=0.08)
             vet = jvet.init_params(jax.random.PRNGKey(4))
             runs["vet_params"] = vet
+            runs["unet_params"] = unet
         else:
             unet, vet = from_jax_params(unet), from_jax_params(vet)
         pipe = nights["make"](side, root, trailnet_params=unet,
@@ -570,21 +580,80 @@ def test_networks_class_real(net_visit):
 def test_sat_model_path_keras_route(tmp_path):
     """A sat_model_path ending in .h5 goes through
     convert_keras_weights, as in the JAX package; any other path
-    through load_params."""
+    through load_params: the port's own file, its earlier torch.save
+    state dict, and the flax file the JAX package's save_params writes,
+    which gives the parameters from_jax_params carries across."""
     pytest.importorskip("h5py")
     import jax
     from test_torch_models import _keras_file
     from blackbox_tpu.models.trailnet import init_params as jinit
+    from blackbox_tpu.models.trailnet import save_params as jsave
     from blackbox_tpu_torch.models import trailnet as TT
     h5p = _keras_file(str(tmp_path / "asta.h5"),
                       jinit(jax.random.PRNGKey(1), tile=32))
     pt = str(tmp_path / "unet.pt")
     TT.save_params(pt, TT.init_params(torch.Generator().manual_seed(0)))
+    old = str(tmp_path / "unet_torch_save.pt")
+    torch.save(TT.init_params(torch.Generator().manual_seed(1)), old)
+    jparams = jinit(jax.random.PRNGKey(2), tile=32)
+    flax_file = str(tmp_path / "unet.msgpack")
+    jsave(flax_file, jparams)
     for path, want in ((h5p, TT.convert_keras_weights(h5p)),
-                       (pt, TT.load_params(pt))):
+                       (pt, TT.load_params(pt)),
+                       (old, torch.load(old, weights_only=True)),
+                       (flax_file, TT.from_jax_params(jparams))):
         s = ReductionSettings(geometry=TINY)
         s.use_unet_sat, s.sat_model_path = True, path
         got = tdriver.Pipeline(DataTree(str(tmp_path), "ML1"), "ML1", s,
                                device="cpu").trailnet_params
         assert got.keys() == want.keys()
         assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.fixture(scope="module")
+def file_visit(nights, net_visit, tmp_path_factory):
+    """A further visit of the night's field, at 23:58 with net_visit's
+    pixels, through both packages' pipelines with ``use_unet_sat`` and
+    ``sat_model_path`` naming one file: the U-Net parameters of
+    net_visit, written by the JAX package's ``save_params``."""
+    from blackbox_tpu.models.trailnet import save_params as jsave
+    path = str(tmp_path_factory.mktemp("weights") / "unet.msgpack")
+    jsave(path, net_visit["unet_params"])
+    runs = {"path": path}
+    for side in ("jax", "port"):
+        root = nights[side][1]
+        visit = NP.net_visit(root, nights["stars"], at="23:58:00")
+        pipe = nights["make"](side, root, settings=dict(
+            use_unet_sat=True, sat_model_path=path))
+        assert pipe.trailnet_params is not None
+        runs[side] = ([pipe.process_file(visit)], root)
+        runs[side + "_pipe"] = pipe
+    return runs
+
+
+def _satellite(run, stamp):
+    from blackbox_tpu_torch.core import maskbits
+    from blackbox_tpu_torch.io.rice import read_rice
+    (path,) = [q for q in run[0][0].products
+               if q.endswith("_mask.fits.fz") and stamp in q]
+    return (read_rice(path)[0] & maskbits.SATELLITE) != 0
+
+
+def test_sat_model_path_night(file_visit, net_visit):
+    """Both drivers run the U-Net from the JAX-written file: ASTA-P set
+    in both, the SATELLITE bits equal but for pixels on the mask's edge
+    (``mask_edge_flips``), and the port's equal, bit for bit, to those
+    of the same pixels with the parameters carried across in memory
+    (net_visit's 23:55 visit)."""
+    from blackbox_tpu_torch.models.trailnet import from_jax_params
+    a, b = file_visit["port"], file_visit["jax"]
+    NP.check_statuses(a, b)
+    for r in (a[0][0], b[0][0]):
+        assert r.header["ASTA-P"] is True
+    loaded = file_visit["port_pipe"].trailnet_params
+    carried = from_jax_params(net_visit["unet_params"])
+    assert all(torch.equal(loaded[k], carried[k]) for k in carried)
+    got, want = _satellite(a, "235800"), _satellite(b, "235800")
+    assert got.sum() > 0
+    NP.mask_edge_flips(got, want)
+    assert np.array_equal(got, _satellite(net_visit["port"], "235500"))

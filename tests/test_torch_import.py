@@ -102,6 +102,8 @@ SLICE_MODULES = [
     "blackbox_tpu_torch.parallel.extract",
     "blackbox_tpu_torch.parallel.distributed",
     "blackbox_tpu_torch.parallel.dryrun",
+    "blackbox_tpu_torch.io.flaxmsgpack",
+    "blackbox_tpu_torch.io.hdf5",
 ]
 
 # Host modules copied from blackbox_tpu, by dotted path under each
@@ -198,8 +200,10 @@ def test_port_imports_no_jax():
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m in ('jax', 'blackbox_tpu')\n"
-            "             or m.startswith(('jax.', 'jaxlib', 'blackbox_tpu.')))\n"
+            "             if m in ('jax', 'blackbox_tpu', 'flax', 'msgpack',\n"
+            "                      'h5py')\n"
+            "             or m.startswith(('jax.', 'jaxlib', 'blackbox_tpu.',\n"
+            "                              'flax.', 'msgpack.', 'h5py.')))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -192,10 +192,19 @@ def test_keras_transpose_kernel_fault_is_matched(tmp_path):
 
 
 def test_keras_weights_need_h5py(monkeypatch, tmp_path):
+    """Named for what it once held: the conversion needed h5py.  It now
+    reads the file with the port's own HDF5 reader, so with h5py
+    unimportable it gives the JAX package's conversion, bit for bit."""
     import sys
+    pytest.importorskip("h5py")
+    params = JT.init_params(jax.random.PRNGKey(3), tile=32)
+    h5p = _keras_file(str(tmp_path / "asta.h5"), params)
+    want = TT.from_jax_params(JT.convert_keras_weights(h5p, tile=32))
     monkeypatch.setitem(sys.modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        TT.convert_keras_weights(str(tmp_path / "asta.h5"))
+    got = TT.convert_keras_weights(h5p)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert_exact(got[k], want[k], k)
 
 
 def test_even_count_median_is_jax_median():
