@@ -505,51 +505,61 @@ def masked_median_filter(img: torch.Tensor, bad: torch.Tensor, k: int = 5,
     """
     H, W = img.shape
     p = k // 2
-    big = torch.finfo(img.dtype).max
     fb = img if fallback is None else fallback
     out = img.clone()
+    for r0, r1 in _strips(H, p, strip_rows):
+        out[r0:r1, p:W - p] = masked_median_rows(
+            img[r0 - p:r1 + p], bad[r0 - p:r1 + p], k,
+            fb[r0:r1, p:W - p], nan_fallback)
+    return out
+
+
+def masked_median_rows(s: torch.Tensor, bs: torch.Tensor, k: int,
+                       fallback: torch.Tensor, nan_fallback: bool = True):
+    """The masked k x k medians of the interior of ``s`` (..., h + k - 1,
+    w + k - 1), bad where ``bs`` is True: (..., h, w), ``fallback``
+    where no pixel is good (and where the median is NaN, with
+    ``nan_fallback``).  Leading dimensions are a batch (the windows of
+    :mod:`blackbox_tpu_torch.ops.cosmics`)."""
+    p = k // 2
+    h = s.shape[-2] - 2 * p
+    Wi = s.shape[-1] - 2 * p
+    big = torch.finfo(s.dtype).max
     pairs, order = sorted_column_network(k)
     col_ops = [("ce", a, b) for a, b in transposition_pairs(k)]
     merge_ops = [("ce", a, b) for a, b in pairs]
-    Wi = W - 2 * p
-    for r0, r1 in _strips(H, p, strip_rows):
-        h = r1 - r0
-        s = img[r0 - p:r1 + p]
-        bs = bad[r0 - p:r1 + p]
-        # bad -> +big BEFORE the shared column sorts, so good values
-        # sort below every masked one and the ranks below n stay valid
-        bcol = [bs[dy:dy + h] for dy in range(k)]
-        colv = apply_ops([torch.where(b, big, s[dy:dy + h])
-                          for dy, b in enumerate(bcol)], col_ops)
-        views = [colv[r][:, dx:dx + Wi] for dx in range(k) for r in range(k)]
-        sw = apply_ops(views, merge_ops)
-        vs = torch.stack([sw[w] for w in order])
-        ngood = sum((~b[:, dx:dx + Wi]).to(torch.int32)
-                    for b in bcol for dx in range(k))
-        i_lo = torch.clamp(ngood - 1, min=0) // 2
-        i_hi = ngood // 2
-        lo = vs.gather(0, i_lo[None].long())[0]
-        hi = vs.gather(0, i_hi[None].long())[0]
-        fbs = fb[r0:r1, p:W - p]
-        if nan_fallback:
-            med = torch.where(ngood > 0, 0.5 * (lo + hi), torch.nan)
-            med = torch.where(torch.isnan(med), fbs, med)
-        else:
-            med = torch.where(ngood > 0, 0.5 * (lo + hi), fbs)
-        out[r0:r1, p:W - p] = med
-    return out
+    # bad -> +big BEFORE the shared column sorts, so good values sort
+    # below every masked one and the ranks below n stay valid
+    bcol = [bs[..., dy:dy + h, :] for dy in range(k)]
+    colv = apply_ops([torch.where(b, big, s[..., dy:dy + h, :])
+                      for dy, b in enumerate(bcol)], col_ops)
+    views = [colv[r][..., dx:dx + Wi] for dx in range(k) for r in range(k)]
+    sw = apply_ops(views, merge_ops)
+    vs = torch.stack([sw[w] for w in order])
+    ngood = sum((~b[..., dx:dx + Wi]).to(torch.int32)
+                for b in bcol for dx in range(k))
+    i_lo = torch.clamp(ngood - 1, min=0) // 2
+    i_hi = ngood // 2
+    lo = vs.gather(0, i_lo[None].long())[0]
+    hi = vs.gather(0, i_hi[None].long())[0]
+    if nan_fallback:
+        med = torch.where(ngood > 0, 0.5 * (lo + hi), torch.nan)
+        return torch.where(torch.isnan(med), fallback, med)
+    return torch.where(ngood > 0, 0.5 * (lo + hi), fallback)
 
 
 def laplacian_subsampled(img: torch.Tensor, ring=None) -> torch.Tensor:
     """L+ of the 2x-subsampled image, rebinned back (van Dokkum 2001 §3),
     in closed form: the mean of the four subpixel positive Laplacians.
     The frame-border ring is zeroed, or the pixels of the bool map
-    ``ring`` (a column block's share of its frame's ring)."""
+    ``ring`` (a column block's share of its frame's ring, or a batch of
+    windows' share: the neighbours then wrap inside each window, as in
+    the JAX package's ``_win_laplacian``)."""
     v = img
-    up = torch.roll(v, 1, 0)
-    dn = torch.roll(v, -1, 0)
-    lf = torch.roll(v, 1, 1)
-    rt = torch.roll(v, -1, 1)
+    up = torch.roll(v, 1, -2)
+    dn = torch.roll(v, -1, -2)
+    lf = torch.roll(v, 1, -1)
+    rt = torch.roll(v, -1, -1)
     l00 = 2 * v - up - lf
     l01 = 2 * v - up - rt
     l10 = 2 * v - dn - lf
@@ -566,9 +576,11 @@ def laplacian_subsampled(img: torch.Tensor, ring=None) -> torch.Tensor:
 
 
 def dilate(m: torch.Tensor, k: int = 3) -> torch.Tensor:
-    """Boolean dilation with a k x k structure (outside = False)."""
-    x = m.to(torch.float32)[None, None]
-    return F.max_pool2d(x, k, stride=1, padding=k // 2)[0, 0] > 0.5
+    """Boolean dilation with a k x k structure (outside = False) of an
+    (H, W) mask or of a batch (..., H, W), each plane on its own."""
+    x = m.to(torch.float32).reshape(-1, 1, *m.shape[-2:])
+    return (F.max_pool2d(x, k, stride=1, padding=k // 2) > 0.5).reshape(
+        m.shape)
 
 
 def fixpix(img: torch.Tensor, mask_bad: torch.Tensor, k: int = 5,

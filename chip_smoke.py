@@ -37,7 +37,10 @@ Phases, each printing its own lines:
    counted run, one more frame with every K4 call recorded
    (``k4_calls``): each call's live slots, and each call again through
    both K4 designs (``k4_path_replay``).  Phase 7's night prints the
-   live slots of its K4 calls as well.
+   live slots of its K4 calls as well.  Each frame's line (here and in
+   phase 4's timed scene) states the branch its L.A.Cosmic passes took
+   (``lacosmic_watch``: the windowed rounds, their nact, chunks and
+   changed windows, or the dense branch).
 4. The science path (``make_science_programs``): the reference products
    from seed 12345, then a timed scene (bench.py's registration: 0.05
    deg rotation, offset (3.2, -2.7), 8 strips) of one warm-up and two
@@ -146,13 +149,26 @@ Phases, each printing its own lines:
    TINY night on the card against its per-file run on the card
    (``night_parity``, no fallback); ``dryrun_multichip(4)``.  Each step
    prints its ms.
-11. One JSON line with the kernels' counts and times (K4's with the
-   time of the same gathers by advanced indexing, ``library_ms``; K1's
-   with its time at the U-Net's shape, ``unet_*``), then the last line
-   ``{"ok": true, "device": {...}}``.
+11. The windowed L.A.Cosmic rounds at full width (``lacosmic_phase``):
+   the input phase 3's last frame gave ``lacosmic``, with phase 10's 400
+   hits more, through the production parameters (windowed), the dense
+   rounds (``windowed=False``), ``prescreen=True`` and ``max_cells``
+   below round 1's nact (every pass dense); clean, mask and counts of
+   each bit for bit the dense rounds', at least one windowed pass in
+   the production run (else the phase fails: it would prove nothing);
+   each run's passes (branch, nact, chunks), K2 and K4 launches and ms
+   (host clock around synchronised calls, median of 3).  Then, outside
+   the counted run (``window_kernels``), every 112² K4 call of the
+   production run against its plain version, timed, with its bound,
+   and K2 on the first call's windows stacked as the rounds stack them.
+12. One JSON line with the kernels' counts and times (K4's with the
+   time of the same gathers by advanced indexing, ``library_ms``, and
+   its 112² calls, ``window112_*``; K1's with its time at the U-Net's
+   shape, ``unet_*``), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 The launch counters are zeroed just before each of phases 3, 4, 5, 7's
-full night, 8, 9 and 10 and read just after it: every kernel of a phase's path
+full night, 8, 9, 10 and 11 and read just after it: every kernel of a phase's path
 must have moved, K1 must show 1 launch per catalog frame and 2 per
 science frame (its 48 transient steps are one launch), K6 6 per science
 frame, K7 3 per frame it calibrates (it counts iterations, four CUDA
@@ -161,7 +177,7 @@ launches each) and K2 none in phase 5; the night must show K1 3 times
 (one subtraction), phase 9 K1 twice for the U-Net passes over phase 3's
 frame and, in the fifth visit, once for each U-Net, catalog and
 subtraction, and K6 6 times (one subtraction), phase 10's batched
-reduce K1 twice (two frames).  Any failure raises:
+reduce K1 twice (two frames), phase 11 K2 and K4.  Any failure raises:
 the script then exits non-zero and prints no ok line.
 It needs a CUDA device and the repository's port package, and the
 ``tests/night_parity.py`` helper beside it.
@@ -641,7 +657,7 @@ def k4_calls(keep_args: bool):
     """Every ``gather_slot_windows`` call the port's ops make inside the
     block, recorded in the yielded list as (N, size, images, n_active)
     and, with ``keep_args``, the call's (images, y0, x0)."""
-    from blackbox_tpu_torch.ops import (detection, photometry, psf,
+    from blackbox_tpu_torch.ops import (cosmics, detection, photometry, psf,
                                         transients, windows)
     calls = []
     orig = windows.gather_slot_windows
@@ -653,7 +669,7 @@ def k4_calls(keep_args: bool):
                       (imgs, y0, x0) if keep_args else None))
         return orig(images, y0, x0, size, n_active=n_active)
 
-    mods = (detection, photometry, psf, transients)
+    mods = (cosmics, detection, photometry, psf, transients)
     for m in mods:
         m.gather_slot_windows = keep
     try:
@@ -673,6 +689,49 @@ def k4_live(calls, label, card):
         print(f"K4 calls in {label}: {N}x{size}^2, {nimg} image(s): "
               f"{len(live)} calls, live slots {min(live)}-{max(live)} of "
               f"{N} ({min(live) / N:.1%}-{max(live) / N:.1%}) [{card}]")
+
+
+@contextlib.contextmanager
+def lacosmic_watch(keep_input: bool = False):
+    """What the default L.A.Cosmic does inside the block: the yielded
+    dict's "passes" gets each windowed pass's info (nact, the branch
+    taken, chunks, changed windows), and with ``keep_input`` its
+    "input" a copy, on the card, of the (data, inmask, rdnoise) of the
+    last call ``calibrate_detector`` made."""
+    from blackbox_tpu_torch.ops import cosmics
+    from blackbox_tpu_torch.pipeline import reduce
+    seen = {"passes": [], "input": None}
+    orig_pass, orig_lac = cosmics._windowed_pass, reduce.lacosmic
+
+    def watch_pass(*a, **k):
+        out = orig_pass(*a, **k)
+        seen["passes"].append(out[2])
+        return out
+
+    def watch_lac(data, inmask, rdnoise, params, *a, **k):
+        seen["input"] = (data.clone(), inmask.clone(),
+                         torch.as_tensor(rdnoise).clone())
+        return orig_lac(data, inmask, rdnoise, params, *a, **k)
+
+    cosmics._windowed_pass = watch_pass
+    if keep_input:
+        reduce.lacosmic = watch_lac
+    try:
+        yield seen
+    finally:
+        cosmics._windowed_pass = orig_pass
+        reduce.lacosmic = orig_lac
+
+
+def lac_rounds(passes) -> str:
+    """One frame's L.A.Cosmic rounds as text: each windowed pass's
+    branch and nact (round 1 is a dense detection and the first pass
+    its clean, unless the pre-screen places it)."""
+    if not passes:
+        return "L.A.Cosmic: no windowed pass"
+    return "L.A.Cosmic passes: " + ", ".join(
+        f"{q['branch']} (nact {q['nact']}, {q['chunks']} chunks, "
+        f"{q['changed']} changed)" for q in passes)
 
 
 def k4_path_replay(ctx, card, mbias, mflat, xtalk, prev):
@@ -1088,10 +1147,11 @@ def read_counts(label, card, needed):
     return counts
 
 
-def check_frame(out, ctx, label, ms, card):
+def check_frame(out, ctx, label, ms, card, lac=None):
     """A full frame's outputs and the gates of the raw -> catalog path:
     nobjects 3000..5000 (4020 sources injected), cosmics and a trail
-    found, a finite PSF."""
+    found, a finite PSF.  ``lac``: the frame's L.A.Cosmic passes
+    (``lacosmic_watch``), printed."""
     check_outputs(out, ctx, label)
     st = out["stats"]
     nobj, ncr, nsat = (int(st["nobjects"]), int(st["ncosmics"]),
@@ -1100,7 +1160,8 @@ def check_frame(out, ctx, label, ms, card):
     print(f"{label}: {ms:.1f} ms, nobjects {nobj}, ncosmics {ncr}, nsats "
           f"{nsat}, seeing {float(st['s_seeing_pix']):.2f} px, PSF "
           f"{int(st['psf_nstars'])} stars, FWHM {fwhm:.2f} px, elongation "
-          f"STD {float(st['s_elostd']):.2f} (QC red above 10) [{card}]")
+          f"STD {float(st['s_elostd']):.2f} (QC red above 10)"
+          f"{'' if lac is None else '; ' + lac_rounds(lac)} [{card}]")
     if not 3000 <= nobj <= 5000:
         raise AssertionError(f"{label}: nobjects {nobj} outside "
                              "3000..5000 (4020 sources injected)")
@@ -1113,7 +1174,8 @@ def check_frame(out, ctx, label, ms, card):
 def reduce_phase(ctx, card, mbias, mflat, xtalk):
     """Phase 3: three full MeerLICHT frames through make_reduce_fn.
     Returns the last frame's calibrated image and mask, on the host, for
-    phase 9."""
+    phase 9, and the (data, inmask, rdnoise) its L.A.Cosmic call got,
+    for phase 11."""
     from blackbox_tpu_torch.pipeline.reduce import make_reduce_fn
     from blackbox_tpu_torch.synth.device import make_science_device
 
@@ -1127,15 +1189,18 @@ def reduce_phase(ctx, card, mbias, mflat, xtalk):
         chan, osv, osh, _ = make_science_device(
             gen, geom, nstars=4000, ncosmics=800, trail=True, nsat=20)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(chan, osv, osh, mbias, mflat, None, xtalk)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        with lacosmic_watch(keep_input=i == len(SEEDS) - 1) as lac:
+            t0 = time.perf_counter()
+            out = fn(chan, osv, osh, mbias, mflat, None, xtalk)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
         check_frame(out, ctx, f"frame {i} (seed {seed}"
-                    f"{', warm-up' if i == 0 else ''})", ms, card)
+                    f"{', warm-up' if i == 0 else ''})", ms, card,
+                    lac["passes"])
         frame_ms.append(ms)
         if i == len(SEEDS) - 1:
             kept = (out["image"].cpu(), out["mask"].cpu())
+            lac_input = tuple(x.cpu() for x in lac["input"])
         del out, chan, osv, osh
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = frame_ms[1:]
@@ -1143,7 +1208,7 @@ def reduce_phase(ctx, card, mbias, mflat, xtalk):
           f"(frames {', '.join(f'{m:.1f}' for m in steady)} ms after a "
           f"{frame_ms[0]:.1f} ms warm-up), peak memory {peak_gib:.2f} GiB "
           f"[{card}]")
-    return kept
+    return kept, lac_input
 
 
 def reference_products(ctx, front, chan, args):
@@ -1221,19 +1286,22 @@ def science_phase(ctx, card, mbias, mflat, xtalk):
     times = []
     for i in range(3):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        f = front(chan, *args)
-        b = back(f["sub"], f["bkg_std"], f["mask"], f["psf_centre"],
-                 f["cat"], f["stats"]["bkg_std"], ref["sub"], ref["std"],
-                 ref["mask"], (sy, sx), ref["psf"], ref["sr"], cat_t)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        with lacosmic_watch() as lac:
+            t0 = time.perf_counter()
+            f = front(chan, *args)
+            b = back(f["sub"], f["bkg_std"], f["mask"], f["psf_centre"],
+                     f["cat"], f["stats"]["bkg_std"], ref["sub"],
+                     ref["std"], ref["mask"], (sy, sx), ref["psf"],
+                     ref["sr"], cat_t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
         nframes += 1
         ts = b["trans_stats"]
         print(f"science frame {i}{' (warm-up)' if i == 0 else ''}: "
               f"{times[-1]:.1f} ms raw -> transient catalog, z_fratio "
               f"{float(ts['z_fratio']):.4f}, z_nmatch {int(ts['z_nmatch'])},"
-              f" t_ntrans {int(ts['t_ntrans'])} [{card}]")
+              f" t_ntrans {int(ts['t_ntrans'])}; "
+              f"{lac_rounds(lac['passes'])} [{card}]")
         del f, b
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"raw -> transient catalog: {sum(times[1:]) / 2:.1f} ms/frame "
@@ -2617,6 +2685,21 @@ def same_tree(a, b, what):
             raise AssertionError(f"{what}: {e}") from None
 
 
+def with_hits(img):
+    """A copy of a 10560² frame with 400 cosmic hits of 4000 e- more
+    (seed 4242), 20 of them on the columns of four shards' seams."""
+    H, W = img.shape
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    ys = torch.randint(8, H - 8, (400,), generator=gen, device="cuda")
+    xs = torch.randint(8, W - 8, (400,), generator=gen, device="cuda")
+    xs[:20] = torch.tensor([W // 4 * (1 + i % 3) - i % 2 for i in range(20)],
+                           device="cuda")
+    data = img.clone()
+    data.index_put_((ys, xs), torch.full((400,), 4000.0, device="cuda"),
+                    accumulate=True)
+    return data
+
+
 def multi_device_phase(ctx, card, frame, tiny, mbias, mflat, xtalk):
     """Phase 10: the multi-device paths on one card (on every card, when
     there are more), each held to its single-device path.  The tile
@@ -2662,14 +2745,7 @@ def multi_device_phase(ctx, card, frame, tiny, mbias, mflat, xtalk):
     # L.A.Cosmic: the frame with cosmic hits, 20 of them on the seams
     img, msk = frame[0].cuda(), frame[1].cuda()
     H, W = img.shape
-    gen = torch.Generator(device="cuda").manual_seed(4242)
-    ys = torch.randint(8, H - 8, (400,), generator=gen, device="cuda")
-    xs = torch.randint(8, W - 8, (400,), generator=gen, device="cuda")
-    xs[:20] = torch.tensor([W // 4 * (1 + i % 3) - i % 2 for i in range(20)],
-                           device="cuda")
-    data = img.clone()
-    data.index_put_((ys, xs), torch.full((400,), 4000.0, device="cuda"),
-                    accumulate=True)
+    data = with_hits(img)
     p = dc.replace(ctx.lac_params, windowed=False)
     inmask = msk != 0
     with torch.inference_mode():
@@ -2769,6 +2845,161 @@ def multi_device_phase(ctx, card, frame, tiny, mbias, mflat, xtalk):
           f"{dry_ms:.1f} ms [{card}]")
 
 
+# ---------------------------------------------------------------- phase 11
+
+def lacosmic_phase(ctx, card, lac_input):
+    """Phase 11: the windowed L.A.Cosmic rounds at full width, on the
+    input phase 3's last frame gave ``lacosmic`` with 400 hits more
+    (``with_hits``): the production parameters (windowed), the dense
+    rounds (``windowed=False``), the pre-screen and ``max_cells`` below
+    round 1's nact (every pass dense).  Each run's clean, mask and
+    counts must equal the dense rounds' bit for bit, and the production
+    run must take the windowed branch in a pass.  Each run's first call
+    is the counted path; then the median of 3 more, host clock around
+    synchronised calls.  Returns the K2 and K4 launches of that path
+    (``counters``) and the production run's K4 calls (their arguments
+    kept) for ``window_kernels``."""
+    import dataclasses as dc
+    from blackbox_tpu_torch.ops import cosmics
+    data, inmask, rdn = lac_input
+    data = with_hits(data.cuda())
+    inmask, rdn = inmask.cuda(), rdn.cuda()
+    H, W = data.shape
+    base = ctx.lac_params
+    configs = [("production (windowed)", base),
+               ("dense rounds (windowed=False)",
+                dc.replace(base, windowed=False)),
+               ("prescreen=True", dc.replace(base, prescreen=True))]
+    wanted = {n: c for n, c in counters().items()
+              if n in ("median_filter", "gather_slot_windows")}
+    runs, calls = {}, None
+    i = 0
+    while i < len(configs):
+        label, params = configs[i]
+        before = {n: c.launches for n, c in wanted.items()}
+        with lacosmic_watch() as lac, k4_calls(i == 0) as k4:
+            out = cosmics.lacosmic(data, inmask, rdn, params)
+            torch.cuda.synchronize()
+        moved = {n: c.launches - before[n] for n, c in wanted.items()}
+        runs[label] = (out, lac["passes"], moved)
+        if i == 0:
+            calls = k4
+            first = lac["passes"][0]
+            if not any(q["branch"] == "windowed" for q in lac["passes"]):
+                raise AssertionError(
+                    f"phase 11: the production run took no windowed pass "
+                    f"(round 1 nact {first['nact']} > max_cells "
+                    f"{base.max_cells}): it proves nothing")
+            configs.append((f"max_cells={first['nact'] - 1} (below round "
+                            f"1's nact)", dc.replace(
+                                base, max_cells=max(1, first["nact"] - 1))))
+        i += 1
+    counts = read_counts("windowed L.A.Cosmic (each run's first call)",
+                         card, tuple(wanted))
+    dense = runs["dense rounds (windowed=False)"][0]
+    for label, params in configs:
+        out, passes, moved = runs[label]
+        same_tree({"clean": out[0], "crmask": out[1], "counts": out[2]},
+                  {"clean": dense[0], "crmask": dense[1],
+                   "counts": dense[2]}, f"phase 11 {label}")
+        if label.startswith("max_cells") and any(
+                q["branch"] != "dense" for q in passes):
+            raise AssertionError(f"phase 11 {label}: {passes}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cosmics.lacosmic(data, inmask, rdn, params)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"phase 11 L.A.Cosmic {H}x{W}, {label}: counts "
+              f"{dense[2].tolist()}, {int(out[1].sum())} cosmic pixels, "
+              f"clean, mask and counts bit-exact against the dense rounds; "
+              f"{np.median(times):.1f} ms (median of "
+              f"{', '.join(f'{t:.1f}' for t in times)}); K2 "
+              f"{moved['median_filter']}, K4 {moved['gather_slot_windows']}"
+              f" launches; {lac_rounds(passes)} [{card}]")
+    k4 = [c for c in calls if c[1] == base.cell + 2 * cosmics._WIN_MARGIN]
+    return counts, runs[configs[0][0]][2], k4
+
+
+def window_kernels(card, calls):
+    """K4 and K2 at the windowed rounds' shapes, on phase 11's
+    production run, outside the counted path: every K4 call of that run
+    (N windows of 112², three planes) bit for bit against its plain
+    version and timed (``median_ms``, idle card and behind a sleep
+    kernel), its bound from its live slots; the first call's plain and
+    library (advanced indexing) times; then K2 on that call's windows
+    stacked as ``_win_median`` stacks them (k = 3, 5, 7) against its
+    plain version, with the k = 5 plane timed.  Returns the K4 and K2
+    entries' ``window_*`` keys and the largest error."""
+    from blackbox_tpu_torch.ops import cosmics, filters, windows
+    err, shapes, idle, busy, bounds = 0.0, [], [], [], []
+    for N, size, nimg, n_active, (imgs, y0, x0) in calls:
+        live = N if n_active is None else int(n_active)
+        got = windows.gather_slot_windows(imgs, y0, x0, size, n_active)
+        ref = windows._gather_plain(imgs, y0, x0, size, n_active)
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(got, ref)))
+        idle.append(median_ms(lambda: windows.gather_slot_windows(
+            imgs, y0, x0, size, n_active)))
+        busy.append(median_ms(lambda: windows.gather_slot_windows(
+            imgs, y0, x0, size, n_active), busy=True))
+        # 4 B a window pixel of each plane: read for the live slots,
+        # written for every slot
+        bounds.append(bound(4.0 * nimg * size * size * (live + N))[0])
+        shapes.append([N, size, nimg, live])
+    N, size, nimg, n_active, (imgs, y0, x0) = calls[0]
+    plain = median_ms(lambda: windows._gather_plain(imgs, y0, x0, size,
+                                                    n_active))
+    Hp, Wp = imgs[0].shape
+    ar = torch.arange(size, device="cuda")
+    iy = (y0[:, None, None] + ar[None, :, None]).clamp(0, Hp - 1)
+    ix = (x0[:, None, None] + ar[None, None, :]).clamp(0, Wp - 1)
+    lib = median_ms(lambda: tuple(im[iy, ix] for im in imgs))
+    del iy, ix
+    print(f"K4 gather_slot_windows at the windowed L.A.Cosmic's shape: "
+          f"{len(calls)} calls a run ({', '.join(f'{s[0]}x{s[1]}^2 x {s[2]}'
+                                                 f' ({s[3]} live)'
+                                                 for s in shapes)}), "
+          f"bit-exact; the first {idle[0]:.4f} ms from an idle card, "
+          f"{busy[0]:.4f} ms behind a sleep kernel, plain {plain:.3f} ms, "
+          f"library (plane[iy, ix] of the three planes) {lib:.3f} ms, "
+          f"bound {bounds[0]:.4f} ms (bytes); all {len(calls)}: "
+          f"{sum(idle):.4f} / {sum(busy):.4f} ms against a bound of "
+          f"{sum(bounds):.4f} ms [{card}]")
+    cw = windows.gather_slot_windows(imgs, y0, x0, size, n_active)[0]
+    th, tw = filters.MEDIAN_TILE
+    k2 = {}
+    for k in filters.MEDIAN_KS:
+        pk = k // 2
+        T = size + 2 * pk
+        plane = cosmics._edge_pad(cw, pk, pk, pk, pk).reshape(N * T, T)
+        err = max(err, max_abs_err(filters.median_filter(plane, k),
+                                   filters._median_plain(plane, k, 176)))
+        if k == 5:
+            ops, _, _ = filters.tile_median_ops(k, th, tw)
+            per_px = filters.comparator_cost(ops) / (th * tw)
+            k2 = {"window_plane": [N * T, T],
+                  "window_plane_ms": cuda_ms(
+                      lambda: filters.median_filter(plane, 5)),
+                  "window_plane_plain_ms": cuda_ms(
+                      lambda: filters._median_plain(plane, 5, 176), reps=1),
+                  "window_plane_bound_ms": bound(
+                      8.0 * plane.numel(), f32_ops=per_px * plane.numel())[0]}
+    print(f"K2 median_filter on {N} windows of {size}^2 stacked "
+          f"(k = 3, 5, 7, each window edge-padded by k//2): bit-exact; "
+          f"k = 5 plane {k2['window_plane'][0]}x{k2['window_plane'][1]} "
+          f"{k2['window_plane_ms']:.3f} ms, plain "
+          f"{k2['window_plane_plain_ms']:.3f} ms, bound "
+          f"{k2['window_plane_bound_ms']:.4f} ms [{card}]")
+    k4 = {"window112_calls": shapes, "window112_ms": idle[0],
+          "window112_busy_ms": busy[0], "window112_plain_ms": plain,
+          "window112_library_ms": lib, "window112_bound_ms": bounds[0],
+          "window112_run_ms": [sum(idle), sum(busy)],
+          "window112_run_bound_ms": sum(bounds)}
+    return k4, k2, err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2813,7 +3044,7 @@ def main() -> int:
 
     # phase 3: raw -> catalog
     zero_counts()
-    frame = reduce_phase(ctx, card, mbias, mflat, xtalk)
+    frame, lac_input = reduce_phase(ctx, card, mbias, mflat, xtalk)
     c3 = read_counts("raw -> catalog", card, ("label_propagate",
                                               "median_filter",
                                               "gather_slot_windows"))
@@ -2915,10 +3146,30 @@ def main() -> int:
                            "gather_slot_windows", "fft_cols_split"))
         print(f"phase 10: {time.time() - t10:.1f} s [{card}]")
 
+    # phase 11: the windowed L.A.Cosmic rounds at full width against the
+    # dense ones, their launches counted; then K4 and K2 at their shapes
+    torch.cuda.empty_cache()
+    t11 = time.time()
+    zero_counts()
+    c11, lac_moved, lac_k4 = lacosmic_phase(ctx, card, lac_input)
+    del lac_input
+    k4_window, k2_window, werr = window_kernels(card, lac_k4)
+    del lac_k4
+    print(f"phase 11: {time.time() - t11:.1f} s [{card}]")
+
     for r in results:
         r["launches"] = (c3[r["name"]] + c4[r["name"]] + c5[r["name"]]
                          + c7[r["name"]] + c8[r["name"]] + c9[r["name"]]
-                         + c10[r["name"]])
+                         + c10[r["name"]] + c11[r["name"]])
+        r["lacosmic_phase_launches"] = c11[r["name"]]
+        if r["name"] in lac_moved:
+            r["lacosmic_windowed_launches"] = lac_moved[r["name"]]
+        if r["name"] == "gather_slot_windows":
+            r.update(k4_window)
+            r["max_abs_err"] = max(r["max_abs_err"], werr)
+        if r["name"] == "median_filter":
+            r.update(k2_window)
+            r["max_abs_err"] = max(r["max_abs_err"], werr)
         r["file_to_file_launches"] = c7[r["name"]]
         r["coadd_phase_launches"] = c8[r["name"]]
         r["networks_phase_launches"] = c9[r["name"]]

@@ -42,6 +42,9 @@ STAGES = {
         "fft2_split", "ifft2_split", "_otf_scr", "_kernel_sq_stamps"),
     "blackbox_tpu_torch.ops.transients": (
         "label_segments", "fused_detect", "gather_slot_windows"),
+    "blackbox_tpu_torch.ops.cosmics": (
+        "_detect_math", "_prescreen_seeds", "_windowed_pass", "_dense_pass",
+        "gather_slot_windows", "_win_masked_median"),
 }
 
 _totals = collections.defaultdict(float)

@@ -63,7 +63,7 @@ def _nonlin_coeffs():
     (dict(clean_cap=64, windowed=False), 6.0),
     (dict(clean_cap=3, windowed=False), 6.0),        # cap below the count
     (dict(clean_cap=64), "map"),                     # map -> unwindowed
-    (dict(clean_cap=64), 6.0),                       # windowed: dense clean
+    (dict(clean_cap=64), 6.0),                       # windowed: cap unused
 ])
 def test_lacosmic_variants_match_jax(kw, rdn):
     img = cosmic_scene(11, H, W, 30, nstars=12)

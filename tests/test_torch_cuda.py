@@ -216,6 +216,86 @@ def test_lacosmic_sharded_on_one_card(dev):
     _same_bits(clean, dclean)
 
 
+@pytest.mark.parametrize("kw", [{}, {"prescreen": True},
+                                {"window_chunk": 3}, {"max_cells": 2}])
+def test_windowed_lacosmic_on_card(dev, kw):
+    """The windowed L.A.Cosmic rounds (the default) on the card against
+    their plain run on the CPU and against the card's dense rounds, bit
+    for bit, on the track scene at 300 x 420 with the production cell
+    of 64 (round 2 finds new pixels); twice on the card with the same
+    bits (the scatter is deterministic); K4 and K2 launched, K4 not
+    where every pass is dense (max_cells=2)."""
+    import dataclasses
+    from torch_parity import track_scene
+    from blackbox_tpu_torch.ops import cosmics, filters, windows
+    img = torch.from_numpy(track_scene(7, 300, 420))
+    p = cosmics.LACosmicParams(sigclip=6.0, objlim=2.0, strip_rows=66,
+                               **kw)
+    cpu = cosmics.lacosmic(img, None, 6.0, p)
+    k2 = filters.median_filter.launches
+    k4 = windows.gather_slot_windows.launches
+    gpu = cosmics.lacosmic(img.to(dev), None, 6.0, p)
+    torch.cuda.synchronize()
+    assert filters.median_filter.launches > k2
+    assert (windows.gather_slot_windows.launches > k4) == (
+        "max_cells" not in kw)
+    assert int(cpu[2][1]) > 0
+    for a, b in zip(gpu, cpu):
+        _same_bits(a.cpu(), b)
+    for a, b in zip(cosmics.lacosmic(img.to(dev), None, 6.0, p), gpu):
+        _same_bits(a, b)
+    dense = cosmics.lacosmic(img.to(dev), None, 6.0,
+                             dataclasses.replace(p, windowed=False,
+                                                 prescreen=False))
+    for a, b in zip(gpu, dense):
+        _same_bits(a, b)
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+def test_window_median_stacked_on_card(dev, k):
+    """``_win_median`` (the windows stacked into one plane, one K2
+    launch) against each window edge-padded and filtered alone by K2's
+    plain version, with NaN and +-inf pixels and windows at the frame's
+    border (``border_keep``)."""
+    from blackbox_tpu_torch.ops import cosmics, filters
+    g = torch.Generator(device=dev).manual_seed(k)
+    N, S, pk = 6, 112, k // 2
+    a = 100 + 20 * torch.randn((N, S, S), generator=g, device=dev)
+    for v in (float("nan"), float("inf"), -float("inf")):
+        hit = torch.rand((N, S, S), generator=g, device=dev) < 0.002
+        a = torch.where(hit, torch.full_like(a, v), a)
+    fr = cosmics._Frames(torch.tensor([-24, 0, 40, 100, 7, 300], device=dev),
+                         torch.tensor([-24, 17, 0, 250, 3, 9], device=dev),
+                         S, 380, 350)
+    before = filters.median_filter.launches
+    got = cosmics._win_median(a, k, fr.bk(pk), 64)
+    assert filters.median_filter.launches == before + 1
+    for i in range(N):
+        med = filters._median_plain(
+            cosmics._edge_pad(a[i], pk, pk, pk, pk), k, 64)[pk:pk + S,
+                                                             pk:pk + S]
+        _same(got[i], torch.where(fr.bk(pk)[i], a[i], med))
+
+
+def test_gather_kernel_lacosmic_windows(dev):
+    """K4 at the windowed L.A.Cosmic's call: 112² windows of three
+    planes of one edge-padded frame (f32 data, f32 masks), starts on a
+    64-px cell grid, the last slots past n_active (zeros)."""
+    from blackbox_tpu_torch.ops import windows
+    g = torch.Generator(device=dev).manual_seed(112)
+    H, W = 64 * 7 + 48, 64 * 9 + 48
+    imgs = (torch.randn((H, W), generator=g, device=dev),
+            (torch.rand((H, W), generator=g, device=dev) < 0.1).float(),
+            (torch.rand((H, W), generator=g, device=dev) < 0.01).float())
+    cells = torch.randperm(63, generator=g, device=dev)[:40].sort().values
+    y0, x0 = (cells // 9) * 64, (cells % 9) * 64
+    for nact in (None, 33):
+        got = windows.gather_slot_windows(imgs, y0, x0, 112, n_active=nact)
+        ref = windows._gather_plain(imgs, y0, x0, 112, nact)
+        for a, b in zip(got, ref):
+            _same_bits(a, b)
+
+
 def test_reduce_tiny_card_matches_cpu(dev):
     """The whole slice on a TINY frame: kernels on the card against the
     plain versions on the CPU (masks and counts exact)."""

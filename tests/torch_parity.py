@@ -101,3 +101,21 @@ def cosmic_scene(seed: int, H: int, W: int, ncr: int, nstars: int = 0):
         if a > 15000:
             img[y, x + 1] += 0.6 * a
     return img
+
+
+def track_scene(seed: int, H: int, W: int, ntracks: int = 12):
+    """cosmic_scene (seed 11, 30 hits, 12 stars) plus ``ntracks``
+    cosmic tracks 2 px wide, 3-6 px long, of 2e4-6e4 e-: with
+    ``sigclip=6, objlim=2`` cleaning a track's core in L.A.Cosmic's
+    round 1 leaves its wings significant, so round 2 finds new pixels."""
+    img = cosmic_scene(11, H, W, 30, nstars=12)
+    rng = np.random.default_rng(seed)
+    for _ in range(ntracks):
+        length, amp = rng.integers(3, 7), rng.uniform(2e4, 6e4)
+        y, x = rng.uniform(8, H - 8), rng.uniform(8, W - 8)
+        th = rng.uniform(0, np.pi)
+        for s in range(length):
+            yy = int(round(y + s * np.sin(th)))
+            xx = int(round(x + s * np.cos(th)))
+            img[yy:yy + 2, xx:xx + 2] += amp
+    return img
