@@ -8,8 +8,10 @@ the full-frame stages.  Channel indices on the mosaic are::
     [ 8  9 10 11 12 13 14 15]     (top row,   y-mirrored readout)
     [ 0  1  2  3  4  5  6  7]     (bottom row)
 
-The dataclass and the two canonical instruments are copies of the JAX
-package's (held equal by ``tests/test_torch_import.py``); the layout
+The dataclass, its host slice tables (numpy slices of the raw and the
+reduced mosaic, as the reference's ``define_sections`` gives them) and
+the two canonical instruments are copies of the JAX package's (held
+equal by ``tests/test_torch_import.py``); the layout
 transforms work on torch tensors (on any device) and, for the host
 code copied from the JAX package (the synthetic generator), on numpy
 arrays, as the JAX package's work on both of its array kinds.
@@ -18,6 +20,7 @@ arrays, as the JAX package's work on both of its array kinds.
 from __future__ import annotations
 
 import dataclasses
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -87,6 +90,81 @@ class CCDGeometry:
     def os_hori_height(self) -> int:
         """Usable horizontal-overscan rows after edge cuts."""
         return max(self.ysize_os - self.ncut_hori, 0)
+
+    # ---- host-side slice tables (numpy indexing on the raw mosaic) -----
+
+    @cached_property
+    def chan_sec(self) -> tuple:
+        """Per-channel slices incl. overscans (reference ``chan_sec``)."""
+        dy, dx = self.dy, self.dx
+        return tuple(
+            (slice(iy * dy, (iy + 1) * dy), slice(ix * dx, (ix + 1) * dx))
+            for iy in range(self.ny) for ix in range(self.nx)
+        )
+
+    @cached_property
+    def data_sec(self) -> tuple:
+        """Per-channel data-section slices in the raw mosaic."""
+        out = []
+        for iy in range(self.ny):
+            y0 = self._data_y0(iy)
+            for ix in range(self.nx):
+                x0 = ix * self.dx
+                out.append((slice(y0, y0 + self.ysize_chan),
+                            slice(x0, x0 + self.xsize_chan)))
+        return tuple(out)
+
+    @cached_property
+    def os_sec_vert(self) -> tuple:
+        """Usable vertical-overscan slices (full channel height)."""
+        dy, dx = self.dy, self.dx
+        x_lo = self.xsize_chan + self.ncut_vert
+        return tuple(
+            (slice(iy * dy, (iy + 1) * dy),
+             slice(ix * dx + x_lo, (ix + 1) * dx - 1))
+            for iy in range(self.ny) for ix in range(self.nx)
+        )
+
+    @cached_property
+    def os_sec_hori(self) -> tuple:
+        """Usable horizontal-overscan slices (full channel width): the
+        rows farthest from the data section (the ``ncut_hori`` rows next
+        to the data are flux-contaminated)."""
+        dy, dx = self.dy, self.dx
+        h = self.os_hori_height
+        out = []
+        for iy in range(self.ny):
+            # bottom row: strip above the data, keep its top rows; top
+            # row: strip below the data, keep its bottom rows
+            y0 = dy - h if iy == 0 else dy
+            for ix in range(self.nx):
+                out.append((slice(y0, y0 + h),
+                            slice(ix * dx, (ix + 1) * dx)))
+        return tuple(out)
+
+    @cached_property
+    def data_sec_red(self) -> tuple:
+        """Per-channel slices in the reduced (overscan-stripped) mosaic."""
+        out = []
+        for iy in range(self.ny):
+            y0 = iy * self.ysize_chan
+            for ix in range(self.nx):
+                x0 = ix * self.xsize_chan
+                out.append((slice(y0, y0 + self.ysize_chan),
+                            slice(x0, x0 + self.xsize_chan)))
+        return tuple(out)
+
+    def _data_y0(self, iy: int) -> int:
+        """Raw-mosaic row where channel-row ``iy``'s data section starts:
+        bottom channels hold their data first, top channels their
+        overscan (towards the centre) first."""
+        return iy * self.dy + (self.ysize_os if iy == 1 else 0)
+
+    @cached_property
+    def chan_is_top(self) -> np.ndarray:
+        """Per-channel mosaic row parity: True for the top row, the
+        mirror readout."""
+        return np.repeat(np.arange(self.ny) == 1, self.nx)
 
     def split_raw(self, raw):
         """Raw mosaic -> (chan_data, os_vert, os_hori) stacks.

@@ -89,13 +89,17 @@ def masked_median(x, mask=None, axis=-1):
 
 
 def sigma_clip(x, mask=None, axis=None, sigma: float = 3.0,
-               iters: int = 5, cenfunc: str = "mean"):
+               sigma_lower=None, sigma_upper=None, iters: int = 5,
+               cenfunc: str = "mean"):
     """Fixed-iteration sigma clipping.  Returns the final exclusion mask.
 
     Center per iteration is the mean (``cenfunc="mean"``) or the median
     (``"median"``) of the kept values, scale their std (ddof=0); values
-    outside ``center -/+ sigma * std`` are excluded.
+    outside ``center - sigma_lower * std .. center + sigma_upper * std``
+    are excluded (astropy's clip; each bound defaults to ``sigma``).
     """
+    sigma_lower = sigma if sigma_lower is None else sigma_lower
+    sigma_upper = sigma if sigma_upper is None else sigma_upper
     if mask is None:
         mask = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
     m = mask | ~torch.isfinite(x)
@@ -106,7 +110,8 @@ def sigma_clip(x, mask=None, axis=None, sigma: float = 3.0,
                       if axis is None else masked_median(x, m, axis=axis))
         center = _expand(center, axis)
         std = _expand(std, axis)
-        new_m = m | (x < center - sigma * std) | (x > center + sigma * std)
+        new_m = (m | (x < center - sigma_lower * std)
+                 | (x > center + sigma_upper * std))
         # keep everything masked if stats were NaN (all-masked slice)
         m = torch.where(torch.isnan(std) | (std == 0), m, new_m)
     return m
@@ -175,10 +180,12 @@ def sorted_clipped_stats(x, mask=None, sigma: float = 3.0, iters: int = 3):
 
 
 def sigma_clipped_mean_std(x, mask=None, axis=None, sigma: float = 3.0,
-                           iters: int = 5):
+                           iters: int = 5, cenfunc: str = "mean",
+                           std_ddof: int = 0):
     """astropy ``sigma_clipped_stats``-style (mean, std) after clipping."""
-    m = sigma_clip(x, mask=mask, axis=axis, sigma=sigma, iters=iters)
-    return masked_mean_std(x, m, axis=axis)
+    m = sigma_clip(x, mask=mask, axis=axis, sigma=sigma, iters=iters,
+                   cenfunc=cenfunc)
+    return masked_mean_std(x, m, axis=axis, ddof=std_ddof)
 
 
 def sigma_clipped_median(x, mask=None, axis=-1, sigma: float = 3.0,

@@ -709,7 +709,8 @@ class Pipeline:
                             "contract (%s); recalibrating from raw",
                             "; ".join(problems[:3]))
                 return self._process(path, True, True, cat_extract,
-                                     trans_extract)
+                                     trans_extract,
+                                     device_override=device_override)
             raise RuntimeError(
                 "header contract violated, not shipping: "
                 + "; ".join(problems[:8]))

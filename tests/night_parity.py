@@ -14,6 +14,7 @@ chain (``test_torch_science.py``'s module note), held at
 
 from __future__ import annotations
 
+import glob
 import os
 
 import numpy as np
@@ -210,11 +211,25 @@ def clip_edge(ha, hb):
     return std / np.sqrt(n), 2.5 ** 2 / (2 * n)
 
 
+def written_unit(x, y) -> float:
+    """One unit of the last decimal two float keywords are written to,
+    where both are written to at most 6 decimals, else 0: a keyword the
+    driver rounds (``round(v, 4)``) from two values within a tolerance
+    may land on neighbouring units (Z-FRSTD 0.0184 and 0.0185 from
+    0.01845 -/+ 1e-7)."""
+    def decimals(v):
+        r = repr(float(v))
+        return 99 if "e" in r else len(r.split(".")[1])
+    d = max(decimals(x), decimals(y))
+    return 10.0 ** -d if d <= 6 else 0.0
+
+
 def check_headers(a, b, level):
     """Same keywords and flags; integer, boolean and string keywords
     equal (PC-NCAL but for ``clip_edge``); magnitudes within 1e-3 mag
     (plus ``clip_edge``); other floats within FLOAT_RTOL, plus the
-    pixel atol in e-.  Raises naming every keyword that differs."""
+    pixel atol in e-; every float plus ``written_unit``.  Raises naming
+    every keyword that differs."""
     bad = []
     for i, (ra, rb) in enumerate(zip(a[0], b[0])):
         ha, hb = ra.header, rb.header
@@ -228,14 +243,17 @@ def check_headers(a, b, level):
             unit = hb.comment(k)
             if k == "PC-NCAL":
                 continue                # clip_edge holds it
+            numeric = isinstance(y, float) and not isinstance(x, (bool, str))
+            rounding = written_unit(x, y) if numeric else 0.0
             if k == "PC-ZPSTD":
-                ok = abs(x - y) <= 1e-3 + dstd * max(x, y)
+                ok = abs(x - y) <= 1e-3 + dstd * max(x, y) + rounding
             elif isinstance(y, float) and unit.startswith("[mag]"):
-                ok = abs(x - y) <= 1e-3 + dzp
-            elif isinstance(y, float) and not isinstance(x, (bool, str)):
+                ok = abs(x - y) <= 1e-3 + dzp + rounding
+            elif numeric:
                 atol = pixel_atol(level) if unit.startswith("[e-]") \
                     else 1e-12
-                ok = abs(x - y) <= FLOAT_RTOL * max(abs(x), abs(y)) + atol
+                ok = (abs(x - y) <= FLOAT_RTOL * max(abs(x), abs(y)) + atol
+                      + rounding)
             else:
                 ok = type(x) is type(y) and x == y
             if not ok:
@@ -350,33 +368,58 @@ def check_catalog_pair(pa, pb):
             assert np.all(d <= 1e-3 * np.abs(y) + 1e-6), k
 
 
-def check_transients(a, b):
+def threshold_band(scorr, step, x, y, nsigma=6.0):
+    """The pixels of the transient at (x, y) whose |Scorr| may fall on
+    either side of the detection threshold ``nsigma``
+    (``TransientParams.nsigma``) between two runs: within the Scorr
+    tolerance at the threshold of it, plus half the step of the decoded
+    map ``scorr`` (the Rice coding's rounding), in the 8-connected
+    region above the band's floor that holds the peak."""
+    from scipy import ndimage
+    a = np.abs(scorr)
+    tol = SCORR_ATOL + SCORR_RTOL * nsigma + 0.5 * step
+    lab, _ = ndimage.label(a > nsigma - tol, np.ones((3, 3), bool))
+    region = lab == lab[y, x]
+    return int((region & (np.abs(a - nsigma) <= tol)).sum())
+
+
+def check_transients(a, b, npix_band=False):
     """T-NTRANS equal, peak pixels equal but for a near tie, the rest at
     the Scorr and flux tolerances; returns the (x, y) of ``a``'s
-    transients, 0-based."""
+    transients, 0-based.  With ``npix_band`` a transient's pixel count
+    (NPIX_ZOGY) may differ by its pixels in ``threshold_band``, and
+    the shape (ELONG_ZOGY) of a transient whose count differs, a moment
+    of another footprint, is not compared."""
     ha, hb = a[0][-1].header, b[0][-1].header
     assert ha["T-NTRANS"] == hb["T-NTRANS"] >= 1
     (tb, ta), = pairs(a, b, "_red_trans.fits")
     (sb, _), = pairs(a, b, "_Scorr.fits.fz")
     cb, ca = table(tb), table(ta)
     assert list(ca) == list(cb) and len(ca["NUMBER"]) == len(cb["NUMBER"])
-    scorr, _ = decode(sb)
+    scorr, step = decode(sb)
     ax, ay = (np.asarray(ca[k]) - 1 for k in ("X_PEAK", "Y_PEAK"))
     bx, by = (np.asarray(cb[k]) - 1 for k in ("X_PEAK", "Y_PEAK"))
     keep = np.setdiff1d(np.arange(len(ax)),
                         peak_ties((ax, ay), (bx, by), scorr))
-    for k in ("X_PEAK", "Y_PEAK", "NUMBER", "NPIX_ZOGY"):
+    for k in ("X_PEAK", "Y_PEAK", "NUMBER"):
         assert np.array_equal(np.asarray(ca[k])[keep],
                               np.asarray(cb[k])[keep]), k
+    npix = [np.asarray(c["NPIX_ZOGY"])[keep] for c in (ca, cb)]
+    band = [threshold_band(scorr, float(step.max()), int(bx[i]), int(by[i]))
+            if npix_band else 0 for i in keep]
+    assert np.all(np.abs(npix[0] - npix[1]) <= band), (npix, band)
     x, y = (np.asarray(c["SNR_ZOGY"])[keep] for c in (ca, cb))
     assert np.all(np.abs(x - y) <= SCORR_ATOL + SCORR_RTOL * np.abs(y))
     for k in ("E_FLUX_ZOGY", "ELONG_ZOGY"):
         x, y = (np.asarray(c[k])[keep] for c in (ca, cb))
-        assert np.all(np.abs(x - y) <= 1e-3 * np.abs(y) + 3e-3), k
+        ok = np.abs(x - y) <= 1e-3 * np.abs(y) + 3e-3
+        if k == "ELONG_ZOGY":
+            ok |= npix[0] != npix[1]
+        assert np.all(ok), k
     return ax, ay
 
 
-def check_night(a, b, level):
+def check_night(a, b, level, npix_band=False):
     """Every comparison above, in order; returns the transients' (x, y)
     of ``a``."""
     check_statuses(a, b)
@@ -386,7 +429,131 @@ def check_night(a, b, level):
     check_images(a, b, level)
     check_difference_images(a, b)
     check_catalogs(a, b)
-    return check_transients(a, b)
+    return check_transients(a, b, npix_band)
+
+
+# ---------------------------------------------------------- knob night
+#
+# The driver's optional calibration branches on ``tiny_night``: a static
+# bad-pixel mask and a non-linearity file named relative to ``cal_dir``,
+# three darks stacked into a master dark (``create_mdark``), the field
+# grid's pointing check, and a granular resume of the second visit.
+
+CAL_DIR = "CalFiles"
+BPM_FILE = "bpm_q.fits"
+NONLIN_FILE = "nonlin.npy"
+NONLIN_FRAC = 0.02      # the .npy file's constant fractional correction
+DARK_RATE = 0.5         # e-/s, the synthetic darks' dark current
+FIELD_GRID = {42: (RA0, DEC0)}
+
+
+def bpm_pixels(shape, nscatter):
+    """(rows, columns) of a static mask's BAD pixels on a frame of
+    ``shape``: the middle half of the column at a third of the width,
+    and ``nscatter`` pixels drawn from seed 3."""
+    H, W = shape
+    rng = np.random.default_rng(3)
+    col = np.arange(H // 4, 3 * H // 4)
+    return (np.concatenate([col, rng.integers(0, H, nscatter)]),
+            np.concatenate([np.full(col.size, W // 3),
+                            rng.integers(0, W, nscatter)]))
+
+
+def write_bpm(path, shape, nscatter):
+    """The static mask of ``bpm_pixels`` as a uint8 FITS image."""
+    from blackbox_tpu_torch.core import maskbits
+    from blackbox_tpu_torch.io.fits import Header, write_image
+    bpm = np.zeros(shape, np.uint8)
+    bpm[bpm_pixels(shape, nscatter)] = maskbits.BAD
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    write_image(path, bpm, Header())
+
+
+def knob_settings(root):
+    """The knob night's settings beyond ``tiny_night``'s (``create_ref``):
+    the mask and the non-linearity file of ``tiny_knob_night``, named
+    relative to ``root``/CAL_DIR, and the master dark."""
+    return dict(cal_dir=os.path.join(root, CAL_DIR),
+                bad_pixel_mask={"q": BPM_FILE}, correct_nonlin=True,
+                nonlin_corr_file=NONLIN_FILE, create_mdark=True)
+
+
+def tiny_knob_night(root):
+    """``tiny_night`` under ``root``, three 60-s darks at 22:48 (seed 12,
+    DARK_RATE) and, under ``root``/CAL_DIR, the static mask
+    (``bpm_pixels`` with 40 scattered pixels) and the constant
+    NONLIN_FRAC correction as (C, 3) coefficients.  Returns the raw
+    files in the order the night reduces them (bias, flat, dark, the two
+    visits) and the stars' truth."""
+    from blackbox_tpu_torch.astro.time import iso2mjd
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.orchestration.paths import DataTree
+    from blackbox_tpu_torch.synth.observation import write_observation
+    files, stars = tiny_night(root)
+    rng = np.random.default_rng(12)
+    mjd0 = iso2mjd("2026-03-01T22:48:00.000")
+    darks = []
+    for i in range(3):
+        p = os.path.join(DataTree(root, "ML1").raw_dir(DATE),
+                         f"ML1_{DATE}_22480{i}.fits")
+        write_observation(p, TINY, rng, "dark", mjd_start=mjd0 + i * 1e-3,
+                          dark_rate_e=DARK_RATE)
+        darks.append(p)
+    cal = os.path.join(root, CAL_DIR)
+    write_bpm(os.path.join(cal, BPM_FILE), TINY.red_shape, 40)
+    coeffs = np.zeros((TINY.n_chan, 3), np.float32)
+    coeffs[:, 0] = NONLIN_FRAC
+    np.save(os.path.join(cal, NONLIN_FILE), coeffs)
+    return files[:6] + darks + files[6:], stars
+
+
+def resume(pipe, path):
+    """The granular resume of a reduced visit (raw ``path``), twice: its
+    catalog deleted and its catalog stage run again from the published
+    image (``trans_extract=False``).  Returns both FrameResults."""
+    from blackbox_tpu_torch.orchestration.paths import base_name
+    out = []
+    for _ in range(2):
+        cat, = glob.glob(os.path.join(pipe.tree.root, "**", base_name(path)
+                                      + "_red_cat.fits"), recursive=True)
+        os.remove(cat)
+        out.append(pipe.process_file(path, trans_extract=False))
+    return out
+
+
+def check_knobs(run, resumes, shape):
+    """The knob night's flags (``shape`` its frames'): BPM-F on the
+    object and flat frames and the BAD bit at every pixel of the static
+    mask in the object frames' masks, NONLIN-P on every
+    frame the correction applies to, the master dark of three darks,
+    RADECOFF, the first visit adopted as reference and the second
+    subtracted, and both resumes through the published image."""
+    from blackbox_tpu_torch.core import maskbits
+    from blackbox_tpu_torch.io.rice import read_rice
+    res, root = run
+    bpm = bpm_pixels(shape, 40)
+    for r in res:
+        h = r.header
+        kind = str(h["IMAGETYP"]).strip()
+        assert r.status == "reduced", r.error
+        assert h["NONLIN-P"] is True, kind
+        if kind in ("object", "flat"):
+            assert h["BPM-F"] == BPM_FILE, kind
+        if kind == "object":
+            mask, = (p for p in r.products if p.endswith("_mask.fits.fz"))
+            m = read_rice(mask)[0].astype(np.uint8)
+            assert np.all(m[bpm] & maskbits.BAD), mask
+            assert float(h["RADECOFF"]) < 5.0
+    assert res[-2].header["REF-NEW"] is True
+    h = res[-1].header
+    assert h["TRANS-P"] is True and h["T-NTRANS"] >= 1
+    mdark = os.path.join(root, "ML1", "masters", f"dark_{DATE}.fits.fz")
+    mh = read_rice(mdark)[1]
+    assert int(mh["NDARK"]) == 3, mh["NDARK"]
+    for r in resumes:
+        assert r.status == "reduced", r.error
+        assert r.header["RED-REUSED"] is True
+    return float(mh["MDMEAN"])
 
 
 # -------------------------------------------------------------- co-add

@@ -188,8 +188,8 @@ def test_requires_a_target():
                                                       "ML1"])[0] == 2
 
 
-def test_finding_chart_not_ported(tmp_path, monkeypatch):
-    """--finding_chart is ported: it renders a chart of a product (held
+def test_finding_chart_renders(tmp_path, monkeypatch):
+    """--finding_chart renders a chart of a product (held
     to the JAX package by tests/test_torch_finding_chart.py)."""
     pytest.importorskip("matplotlib")
     from blackbox_tpu_torch.astro.wcs import TanWCS
@@ -209,9 +209,9 @@ def test_finding_chart_not_ported(tmp_path, monkeypatch):
     assert len(list(tmp_path.glob("x_red_*_fc.png"))) == 1
 
 
-def test_device_batch_not_ported(tmp_path):
+def test_device_batch_runs_the_batched_reduce(tmp_path):
     """day mode with settings.device_batch > 1 (the JAX package's
-    sharded multi-device batches) runs on the port: the object frame
+    sharded multi-device batches): the object frame
     goes through the batched reduce, with no fallback, and publishes
     what the per-frame path publishes (the whole night is held to the
     JAX package by tests/test_torch_parallel.py)."""

@@ -318,11 +318,10 @@ def test_timing_spans(nights):
         assert (tdriver.SPAN_SUBTRACT in t) == (i == 7)
 
 
-# the network branches the driver refused until they were ported: each
-# is now taken as the JAX driver takes it (attribute, value it must end
-# with); a sat_model_path that cannot be read is logged and leaves the
-# U-Net off, as in the JAX package
-UNPORTED = {
+# the network branches: each is taken as the JAX driver takes it
+# (attribute, value it must end with); a sat_model_path that cannot be
+# read is logged and leaves the U-Net off, as in the JAX package
+NETWORK_BRANCHES = {
     "trailnet_params": (dict(trailnet_params={"w": 1}), "trailnet_params",
                         {"w": 1}),
     "sat_model_path": (dict(settings={
@@ -333,9 +332,9 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_branches_raise(name, tmp_path):
-    kw, attr, want = UNPORTED[name]
+@pytest.mark.parametrize("name", sorted(NETWORK_BRANCHES))
+def test_network_branches_run(name, tmp_path):
+    kw, attr, want = NETWORK_BRANCHES[name]
     kw = dict(kw)
     s = ReductionSettings(geometry=TINY)
     for k, v in kw.pop("settings", {}).items():
@@ -345,9 +344,9 @@ def test_unported_branches_raise(name, tmp_path):
     assert getattr(pipe, attr) == want
 
 
-def test_device_override_raises(nights, tmp_path):
+def test_device_override_publishes_the_batched_result(nights, tmp_path):
     """process_file(device_override=...) (the batched runner's
-    precomputed device work) no longer raises: the first visit, reduced
+    precomputed device work): the first visit, reduced
     again in a copy of the night's tree from the outputs of the port's
     own calibrate + extract, publishes the same header and mask as the
     night's per-frame run, and the override's image is what it

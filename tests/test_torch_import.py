@@ -223,6 +223,74 @@ def test_geometry_copy(name):
     for prop in ("n_chan", "dy", "dx", "raw_shape", "red_shape",
                  "chan_shape", "os_vert_width", "os_hori_height"):
         assert getattr(got, prop) == getattr(want, prop), prop
+    # the host slice tables: equal tuples of (row, column) slices
+    for table in ("chan_sec", "data_sec", "os_sec_vert", "os_sec_hori",
+                  "data_sec_red"):
+        assert getattr(got, table) == getattr(want, table), table
+    for iy in range(got.ny):
+        assert got._data_y0(iy) == want._data_y0(iy), iy
+    assert got.chan_is_top.dtype == want.chan_is_top.dtype
+    assert np.array_equal(got.chan_is_top, want.chan_is_top)
+
+
+def _clip_sample():
+    """Gaussian rows with high and low outliers, a random mask and an
+    all-masked row (seed 7)."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(10.0, 3.0, (6, 257)).astype(np.float32)
+    x[:, :9] += 60.0
+    x[:, 9:14] -= 25.0
+    mask = rng.random(x.shape) > 0.8
+    mask[2] = True
+    return x, mask
+
+
+@pytest.mark.parametrize("axis", [None, 1])
+@pytest.mark.parametrize("cenfunc", ["mean", "median"])
+@pytest.mark.parametrize("lower,upper", [(None, None), (2.0, 4.0),
+                                         (4.0, 1.5)])
+def test_sigma_clip_options_match_jax(lower, upper, cenfunc, axis):
+    """sigma_clip's asymmetric bounds and both centres: the exclusion
+    masks equal the JAX package's bit for bit; sigma_clipped_mean_std
+    with either ddof at rtol 1e-5 (the two frameworks sum in other
+    orders); the defaults give what the explicit symmetric call gives,
+    bit for bit."""
+    import jax.numpy as jnp
+    import torch
+    from blackbox_tpu.ops import stats as js
+    from blackbox_tpu_torch.ops import stats as ts
+    x, mask = _clip_sample()
+    kw = dict(axis=axis, sigma=2.5, sigma_lower=lower, sigma_upper=upper,
+              cenfunc=cenfunc)
+    got = ts.sigma_clip(torch.from_numpy(x), torch.from_numpy(mask), **kw)
+    want = js.sigma_clip(jnp.asarray(x), jnp.asarray(mask), **kw)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    if lower is None:
+        same = ts.sigma_clip(torch.from_numpy(x), torch.from_numpy(mask),
+                             axis=axis, sigma=2.5, sigma_lower=2.5,
+                             sigma_upper=2.5, cenfunc=cenfunc)
+        assert torch.equal(got, same)
+    for ddof in (0, 1):
+        g = ts.sigma_clipped_mean_std(torch.from_numpy(x),
+                                      torch.from_numpy(mask), axis=axis,
+                                      sigma=2.5, cenfunc=cenfunc,
+                                      std_ddof=ddof)
+        w = js.sigma_clipped_mean_std(jnp.asarray(x), jnp.asarray(mask),
+                                      axis=axis, sigma=2.5, cenfunc=cenfunc,
+                                      std_ddof=ddof)
+        for a, b in zip(g, w):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       err_msg=f"ddof {ddof}")
+    if cenfunc == "mean":
+        # the defaults (cenfunc "mean", ddof 0) are today's call
+        d = ts.sigma_clipped_mean_std(torch.from_numpy(x),
+                                      torch.from_numpy(mask), axis=axis,
+                                      sigma=2.5)
+        m = ts.sigma_clip(torch.from_numpy(x), torch.from_numpy(mask),
+                          axis=axis, sigma=2.5)
+        for a, b in zip(d, ts.masked_mean_std(torch.from_numpy(x), m,
+                                              axis=axis)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 def test_maskbits_copy():
