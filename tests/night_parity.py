@@ -211,24 +211,43 @@ def clip_edge(ha, hb):
     return std / np.sqrt(n), 2.5 ** 2 / (2 * n)
 
 
-def written_unit(x, y) -> float:
-    """One unit of the last decimal two float keywords are written to,
-    where both are written to at most 6 decimals, else 0: a keyword the
-    driver rounds (``round(v, 4)``) from two values within a tolerance
-    may land on neighbouring units (Z-FRSTD 0.0184 and 0.0185 from
-    0.01845 -/+ 1e-7)."""
-    def decimals(v):
-        r = repr(float(v))
-        return 99 if "e" in r else len(r.split(".")[1])
-    d = max(decimals(x), decimals(y))
-    return 10.0 ** -d if d <= 6 else 0.0
+# The float keywords the pipeline rounds before it writes them, with their
+# decimals (``round(v, d)`` in blackbox_tpu_torch/pipeline/headers.py,
+# driver.py and buildref.py and orchestration/masterstore.py, as in the
+# JAX package); a per-channel keyword is listed without its number.
+ROUNDED = {
+    "GPS-SHUT": 4, "MJD-OBS": 8, "LST": 6, "RA": 6, "DEC": 6,
+    "AIRMASS": 4, "ALTITUDE": 3, "AZIMUTH": 3, "RADECOFF": 3,
+    "SUNALT": 2, "MOONALT": 2, "MOONILLU": 3, "MOONDIST": 2,
+    "GAIN": 3, "BIASM": 2, "RDN": 3, "BIASMEAN": 2, "RDNOISE": 3,
+    "SATLEV": 1, "SATURATE": 1, "NCOSMICS": 3,
+    "MEDSEC": 2, "STDSEC": 2, "RSTDSEC": 5, "FLATMED": 2, "FLATSTD": 2,
+    "FLATRSTD": 5, "FLATM": 2, "FLATS": 2, "FLATRS": 5, "RDIF-MAX": 5,
+    "RSTD-MAX": 5,
+    "MBMEAN": 3, "MBRDN": 3, "MBIASM": 3, "MDMEAN": 4, "MDRDN": 4,
+    "MDARKM": 4, "GAINCF": 5, "OFF-MEAN": 2,
+    "S-SEEING": 3, "S-SEEPIX": 3, "S-SEESTD": 3, "S-ELONG": 4,
+    "S-ELOSTD": 4, "S-BKG": 2, "S-BKGSTD": 2,
+    "PSF-FWHM": 3, "PSF-CHI2": 3, "A-RMS": 4, "PC-ZP": 4, "PC-ZPSTD": 4,
+    "LIMMAG": 4, "MC-MED": 3,
+    "Z-FRATIO": 4, "Z-FRSTD": 4, "Z-DXRMS": 4, "Z-DYRMS": 4, "Z-SCSTD": 4,
+}
+
+
+def rounding_unit(key) -> float:
+    """One unit of the last decimal the pipeline rounds float keyword
+    ``key`` to (ROUNDED), else 0: two values within a tolerance, each
+    rounded, may land on neighbouring units (Z-FRSTD 0.0184 and 0.0185
+    from 0.01845 -/+ 1e-7)."""
+    d = ROUNDED.get(key, ROUNDED.get(key.rstrip("0123456789")))
+    return 0.0 if d is None else 10.0 ** -d
 
 
 def check_headers(a, b, level):
     """Same keywords and flags; integer, boolean and string keywords
     equal (PC-NCAL but for ``clip_edge``); magnitudes within 1e-3 mag
     (plus ``clip_edge``); other floats within FLOAT_RTOL, plus the
-    pixel atol in e-; every float plus ``written_unit``.  Raises naming
+    pixel atol in e-; a rounded float plus its ``rounding_unit``.  Raises naming
     every keyword that differs."""
     bad = []
     for i, (ra, rb) in enumerate(zip(a[0], b[0])):
@@ -244,7 +263,7 @@ def check_headers(a, b, level):
             if k == "PC-NCAL":
                 continue                # clip_edge holds it
             numeric = isinstance(y, float) and not isinstance(x, (bool, str))
-            rounding = written_unit(x, y) if numeric else 0.0
+            rounding = rounding_unit(k) if numeric else 0.0
             if k == "PC-ZPSTD":
                 ok = abs(x - y) <= 1e-3 + dstd * max(x, y) + rounding
             elif isinstance(y, float) and unit.startswith("[mag]"):
@@ -383,13 +402,21 @@ def threshold_band(scorr, step, x, y, nsigma=6.0):
     return int((region & (np.abs(a - nsigma) <= tol)).sum())
 
 
+# ELONG_ZOGY's relative allowance for each pixel a transient's footprint
+# gains or loses (NPIX_ZOGY) between two runs, per pixel of the
+# footprint: the pixels that move lie at the threshold, so each carries
+# at most 1/npix of the |Scorr| weight of the moments, and at the
+# footprint's edge, up to ~4 times the weighted second moment away
+ELONG_PER_PIXEL = 4.0
+
+
 def check_transients(a, b, npix_band=False):
     """T-NTRANS equal, peak pixels equal but for a near tie, the rest at
     the Scorr and flux tolerances; returns the (x, y) of ``a``'s
     transients, 0-based.  With ``npix_band`` a transient's pixel count
-    (NPIX_ZOGY) may differ by its pixels in ``threshold_band``, and
-    the shape (ELONG_ZOGY) of a transient whose count differs, a moment
-    of another footprint, is not compared."""
+    (NPIX_ZOGY) may differ by its pixels in ``threshold_band``, printed
+    beside each count, and its shape (ELONG_ZOGY) by ELONG_PER_PIXEL
+    times the share of its pixels that moved, more."""
     ha, hb = a[0][-1].header, b[0][-1].header
     assert ha["T-NTRANS"] == hb["T-NTRANS"] >= 1
     (tb, ta), = pairs(a, b, "_red_trans.fits")
@@ -405,17 +432,26 @@ def check_transients(a, b, npix_band=False):
         assert np.array_equal(np.asarray(ca[k])[keep],
                               np.asarray(cb[k])[keep]), k
     npix = [np.asarray(c["NPIX_ZOGY"])[keep] for c in (ca, cb)]
-    band = [threshold_band(scorr, float(step.max()), int(bx[i]), int(by[i]))
-            if npix_band else 0 for i in keep]
-    assert np.all(np.abs(npix[0] - npix[1]) <= band), (npix, band)
+    gap = np.abs(npix[0] - npix[1])
+    band = np.array([threshold_band(scorr, float(step.max()), int(bx[i]),
+                                    int(by[i])) if npix_band else 0
+                     for i in keep], int)
+    if npix_band:
+        print("transients' NPIX_ZOGY (gap / threshold band): "
+              + ", ".join(f"{p} / {q} ({g} / {w})" for p, q, g, w
+                          in zip(*npix, gap, band)))
+    assert np.all(gap <= band), (npix, band)
     x, y = (np.asarray(c["SNR_ZOGY"])[keep] for c in (ca, cb))
     assert np.all(np.abs(x - y) <= SCORR_ATOL + SCORR_RTOL * np.abs(y))
+    moved = ELONG_PER_PIXEL * gap / np.maximum(np.minimum(*npix), 1)
     for k in ("E_FLUX_ZOGY", "ELONG_ZOGY"):
         x, y = (np.asarray(c[k])[keep] for c in (ca, cb))
-        ok = np.abs(x - y) <= 1e-3 * np.abs(y) + 3e-3
-        if k == "ELONG_ZOGY":
-            ok |= npix[0] != npix[1]
-        assert np.all(ok), k
+        rtol = 1e-3 + (moved if k == "ELONG_ZOGY" else 0.0)
+        ok = np.abs(x - y) <= rtol * np.abs(y) + 3e-3
+        if k == "ELONG_ZOGY" and npix_band:
+            print(f"transients' ELONG_ZOGY: {x} / {y}, relative gaps "
+                  f"{np.abs(x - y) / np.abs(y)}, allowed {rtol}")
+        assert np.all(ok), (k, x, y, rtol)
     return ax, ay
 
 
@@ -519,6 +555,41 @@ def resume(pipe, path):
         os.remove(cat)
         out.append(pipe.process_file(path, trans_extract=False))
     return out
+
+
+# the catalog columns the extraction alone gives; the others (RA, DEC
+# and the magnitudes) take the WCS and the zeropoint that ``Pipeline``
+# then solves on the host from these
+EXTRACTED = ("NUMBER", "X_POS", "Y_POS", "XVAR_POS", "YVAR_POS",
+             "ELONGATION", "FWHM", "CLASS_STAR", "FLAGS", "FLAGS_MASK",
+             "BACKGROUND", "E_FLUX_APER", "E_FLUXERR_APER", "MAGERR_APER",
+             "E_FLUX_AUTO", "E_FLUXERR_AUTO", "MAGERR_AUTO", "E_FLUX_OPT",
+             "E_FLUXERR_OPT", "MAGERR_OPT", "SNR_OPT")
+
+
+def check_resumed_catalog(pipe, cat_path):
+    """A resumed visit's catalog (``cat_path``, written on the reuse
+    path) against ``extract_catalog`` run again through ``pipe``'s
+    context on its device, on the published image and mask beside it
+    as ``Pipeline`` decodes them: every EXTRACTED column bit for bit.
+    Returns the number of rows."""
+    import torch
+    from blackbox_tpu_torch.io.rice import read_rice
+    from blackbox_tpu_torch.pipeline.catalogs import device_cat_to_columns
+    from blackbox_tpu_torch.pipeline.reduce import extract_catalog
+    stem = cat_path[:-len("_red_cat.fits")]
+    sci, mask = (torch.as_tensor(np.asarray(read_rice(stem + ext)[0], dt),
+                                 device=pipe.device)
+                 for ext, dt in (("_red.fits.fz", np.float32),
+                                 ("_mask.fits.fz", np.uint8)))
+    with torch.inference_mode():
+        cat = extract_catalog(pipe.ctx, sci, mask)["cat"]
+    want = device_cat_to_columns(cat, None)
+    got = table(cat_path)
+    bad = [k for k in EXTRACTED
+           if not np.array_equal(np.asarray(got[k]), want[k])]
+    assert not bad, (cat_path, bad)
+    return len(want["NUMBER"])
 
 
 def check_knobs(run, resumes, shape):

@@ -176,6 +176,7 @@ def sides(tmp_path_factory):
                                       **NP.knob_settings(root)),
                      ref_catalog=query, field_grid=NP.FIELD_GRID)
         out[side]["resumes"] = NP.resume(pipe, os.path.join(root, files[-1]))
+        out[side]["resume_pipe"] = pipe
     return out
 
 
@@ -386,8 +387,10 @@ def test_granular_resume_reuses_published_red(sides):
     """A visit missing only its catalog is not calibrated again: both
     resumes take the reuse path (RED-REUSED; the port's look up no
     master) in both packages, with the
-    same keywords (check_headers), and the rewritten catalog agrees
-    between packages (check_catalog_pair)."""
+    same keywords (check_headers), the rewritten catalog agrees
+    between packages (check_catalog_pair), and the port's is the
+    extraction of the decoded published image bit for bit
+    (check_resumed_catalog)."""
     for side in SIDES:
         for r in sides[side]["resumes"]:
             assert r.status == "reduced", (side, r.error)
@@ -401,6 +404,7 @@ def test_granular_resume_reuses_published_red(sides):
     cats = [_product(sides[side]["resumes"][-1], "_red_cat.fits")
             for side in SIDES]
     NP.check_catalog_pair(cats[1], cats[0])
+    assert NP.check_resumed_catalog(sides["port"]["resume_pipe"], cats[1])
 
 
 def test_create_ref_adopts_frame(sides):
