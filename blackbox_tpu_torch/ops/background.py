@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from blackbox_tpu_torch.ops.stats import median, nanmedian, sorted_clipped_stats
 from blackbox_tpu_torch.ops.upsample import upsample_mesh
+from blackbox_tpu_torch.utils.timing import count
 
 
 def background_mesh(image, mask, boxsize: int, nsigma: float = 3.0,
@@ -30,6 +31,7 @@ def background_mesh(image, mask, boxsize: int, nsigma: float = 3.0,
     med, std = box_stats(image, mask, boxsize, nsigma)
     med = torch.nan_to_num(med, nan=float(nanmedian(med)))
     std = torch.nan_to_num(std, nan=float(nanmedian(std)))
+    count("host.reads", 2)
     if filtersize > 1:
         med = _mesh_median_filter(med, filtersize)
         std = _mesh_median_filter(std, filtersize)

@@ -47,6 +47,7 @@ from blackbox_tpu_torch.ops.filters import (dilate, laplacian_subsampled,
                                             masked_median_rows,
                                             median_filter, median_filter_sep)
 from blackbox_tpu_torch.ops.windows import gather_slot_windows
+from blackbox_tpu_torch.utils.timing import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,13 +123,19 @@ def lacosmic(data, inmask, rdnoise, params: LACosmicParams = LACosmicParams(),
                    p.clean_cap)
 
 
+def _read_int(t: torch.Tensor) -> int:
+    """``int(t)``, a host read, counted as one."""
+    count("host.reads")
+    return int(t)
+
+
 def _rounds(data, inmask, rdnoise, p: LACosmicParams, medf, clean_cap=0):
     """``p.niter`` clean-once rounds with detection medians ``medf``."""
     clean = data
     crmask = torch.zeros(data.shape, dtype=torch.bool, device=data.device)
     counts = []
     for _ in range(p.niter):
-        if counts and int(counts[-1]) == 0:
+        if counts and _read_int(counts[-1]) == 0:
             # a round after a zero-new round is a no-op (clean-once)
             counts.append(counts[-1])
             continue
@@ -243,7 +250,7 @@ def _windowed_rounds(data, inmask, rdnoise, p: LACosmicParams):
             crmask = crmask | cosm
             clean, crmask, _ = _windowed_pass(clean, crmask, inmask,
                                               rdnoise, p, False)
-        elif int(counts[-1]) == 0:
+        elif _read_int(counts[-1]) == 0:
             # a round after a zero-new round is a no-op (clean-once)
             counts.append(counts[-1])
         else:
@@ -379,11 +386,23 @@ def _windowed_pass(clean, crmask, inmask, rdnoise, p: LACosmicParams,
     that chunk runs earlier slots again and may leave its last slots
     unvisited; the port runs the same slots in the same order.
 
-    Host reads: the active cells (nact), then the windows with a new
-    pixel.  Above ``cap`` active cells the round is the dense one.
+    Host reads, each counted in ``host.reads``: the active cells
+    (nact), the windows with a new pixel, then the boolean-mask gathers
+    of the scatter (two, and three a chunk of changed windows).  Above
+    ``cap`` active cells the round is the dense one.
     Returns (clean, crmask, info): info holds nact, the branch taken,
-    the chunks run and the windows that changed.
+    the chunks run, the windows gathered (chunks x chunk) and the
+    windows that changed; a span ``lacosmic.pass`` carries it.
     """
+    with span("lacosmic.pass") as s:
+        out = _pass_in_windows(clean, crmask, inmask, rdnoise, p, detect,
+                               place_mask)
+        s.set(**out[2])
+    return out
+
+
+def _pass_in_windows(clean, crmask, inmask, rdnoise, p: LACosmicParams,
+                     detect: bool, place_mask):
     H, W = clean.shape
     dev = clean.device
     CS, M, SM = p.cell, _WIN_MARGIN, _SCAT_MARGIN
@@ -398,13 +417,15 @@ def _windowed_pass(clean, crmask, inmask, rdnoise, p: LACosmicParams,
     crp[:H, :W] = pm
     cell_any = crp.reshape(Hc, CS, Wc, CS).any(3).any(1)
     pos = torch.nonzero(cell_any.reshape(-1))[:, 0]
+    count("host.reads")
     nact = pos.numel()
     if nact > cap:
         return (*_dense_pass(clean, crmask, inmask, rdnoise, p, detect),
-                dict(nact=nact, branch="dense", chunks=0, changed=0))
+                dict(nact=nact, branch="dense", chunks=0, windows=0,
+                     changed=0))
     if nact == 0:
         return clean, crmask, dict(nact=0, branch="windowed", chunks=0,
-                                   changed=0)
+                                   windows=0, changed=0)
     # slots past nact point at the last cell, as the JAX package's
     # searchsorted does; no window of them is used
     slots = torch.full((cap,), Hc * Wc - 1, dtype=torch.long, device=dev)
@@ -460,8 +481,9 @@ def _windowed_pass(clean, crmask, inmask, rdnoise, p: LACosmicParams,
 
     # ---- clean and scatter the windows with a new pixel (one read) ----
     chg = torch.nonzero(CH)[:, 0]
+    count("host.reads")
     info = dict(nact=nact, branch="windowed", chunks=len(starts),
-                changed=chg.numel())
+                windows=n, changed=chg.numel())
     if chg.numel() == 0:
         return clean, crmask, info
     # each pixel of a scatter region goes to the last window the JAX
@@ -477,6 +499,7 @@ def _windowed_pass(clean, crmask, inmask, rdnoise, p: LACosmicParams,
     order = chg.to(torch.int32)[:, None, None].expand(-1, R, R)
     owner = torch.full((H * W,), -1, dtype=torch.int32, device=dev)
     owner.scatter_reduce_(0, flat[inb], order[inb], "amax")
+    count("host.reads", 2)          # the two boolean-mask gathers
     mine = inb & (owner[flat] == order)
     out_c, out_m = clean.clone(), crmask.clone()
     for b0 in range(0, chg.numel(), chunk):
@@ -491,6 +514,7 @@ def _windowed_pass(clean, crmask, inmask, rdnoise, p: LACosmicParams,
         idx = flat[b][keep]
         out_c.view(-1)[idx] = cleaned[:, r, r][keep]
         out_m.view(-1)[idx] = CRM[w][:, r, r][keep]
+        count("host.reads", 3)      # the three boolean-mask gathers
     return out_c, out_m, info
 
 
@@ -526,6 +550,7 @@ def _sparse_masked_clean(clean, crmask, bad, m5, cap: int):
     py, px = pos // W, pos % W
     keep = (py >= 2) & (py < H - 2) & (px >= 2) & (px < W - 2)
     py, px = py[keep], px[keep]
+    count("host.reads", 3)          # the nonzero and two boolean gathers
     off = torch.arange(-2, 3, device=clean.device)
     wy = (py[:, None, None] + off[None, :, None]).expand(-1, 5, 5)
     wx = (px[:, None, None] + off[None, None, :]).expand(-1, 5, 5)

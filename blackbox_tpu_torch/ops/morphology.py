@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from blackbox_tpu_torch.utils.timing import span
+
 
 def _shift(x: torch.Tensor, d: int, dim: int, fill: bool) -> torch.Tensor:
     """new[p] = old[p - d] along ``dim``; pixels shifted in are ``fill``."""
@@ -83,6 +85,11 @@ def fill_holes(m: torch.Tensor, iterations: int = 3,
     O_run <- O_run & shift(O_run, d), d doubling.  ``size`` is the JAX
     package's parameter, which it does not use either.
     """
+    with span("fill_holes"):
+        return _fill_holes(m, iterations)
+
+
+def _fill_holes(m: torch.Tensor, iterations: int) -> torch.Tensor:
     H, W = m.shape[-2], m.shape[-1]
     O = ~m
     border = torch.zeros((H, W), dtype=torch.bool, device=m.device)

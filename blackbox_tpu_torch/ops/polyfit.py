@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from blackbox_tpu_torch.utils.timing import count
+
 
 def vander_norm(x, deg: int, x0: float, x1: float):
     """Vandermonde matrix of ``x`` rescaled from [x0, x1] to [-1, 1]."""
@@ -34,6 +36,8 @@ def polyfit_w(x, y, w, deg: int, x0: float, x1: float, rcond: float = 1e-6):
     tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
     A = A + rcond * torch.eye(D, dtype=A.dtype, device=A.device) * (
         tr[..., None, None] / D + 1e-20)
+    # the solve reads its error flags on the host
+    count("host.reads")
     return torch.linalg.solve(A, b[..., None])[..., 0]
 
 

@@ -22,6 +22,7 @@ import torch
 
 from blackbox_tpu_torch.ops.stats import masked_median
 from blackbox_tpu_torch.ops.windows import gather_slot_windows
+from blackbox_tpu_torch.utils.timing import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,6 +190,7 @@ def build_psf(image_bksub, bkg_std, cat, image_shape,
         A = A + torch.diag(lam) * (torch.trace(A) / K + 1e-20)
         rhs = torch.matmul(wBT, V)                              # (K, npix)
         C = torch.linalg.solve(A, rhs)
+        count("host.reads")         # the solve reads its error flags
         resid = V - torch.matmul(B, C)
         chi2 = torch.sum(resid ** 2 * Wflat, dim=1) / npix
         return C, chi2

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from blackbox_tpu_torch.ops.background import background_mesh, mini2back
 from blackbox_tpu_torch.ops.stats import median
 from blackbox_tpu_torch.ops.zogy import fast_fft_size
+from blackbox_tpu_torch.utils.timing import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,7 +290,9 @@ def detect_trails(image, mask_excl=None, params: SatDetParams = SatDetParams(),
     trail_mask = torch.zeros((H, W), dtype=torch.bool, device=dev)
     xs = torch.arange(W, dtype=torch.float32, device=dev) / f
     ys = torch.arange(H, dtype=torch.float32, device=dev) / f
-    for k in torch.nonzero(top_v > 0).reshape(-1).tolist():
+    lit = torch.nonzero(top_v > 0).reshape(-1).tolist()
+    count("host.reads", 2)          # the nonzero and its list
+    for k in lit:
         t = (ys * sth[k])[:, None] + (xs * cth[k])[None, :]
         d = torch.abs(_jmod(t - m0_ref[k] + N / 2.0, float(N)) - N / 2.0)
         trail_mask |= d * f <= hw_k[k]
@@ -403,6 +406,7 @@ def detect_trail_segments(image, mask_excl=None,
                           stable=True)
     same_o = same[order][:, order].cpu().numpy()
     keep = active[order].cpu().numpy()
+    count("host.reads", 2)
     for k in range(len(keep)):
         if keep[k]:
             keep[k + 1:] &= ~same_o[k, k + 1:]

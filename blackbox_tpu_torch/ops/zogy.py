@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from blackbox_tpu_torch.ops.fft import (fft2_split, ifft2_split, mirror_perm,
                                         spectrum_freqs)
 from blackbox_tpu_torch.ops.stats import nanmedian, nanstd
+from blackbox_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,13 +277,23 @@ def _zogy_split(new, ref, psf_new, psf_ref, sn, sr, fn, fr,
         return ((0.5 * (ar + gr), 0.5 * (ai - gi)),
                 (0.5 * (ai + gi), 0.5 * (gr - ar)))
 
+    # each forward or inverse 2-D transform (K6's pair of column
+    # passes on the card) is a span
+    def _fwd(ar, ai):
+        with span("zogy.fft"):
+            return fft2_split(ar, ai)
+
+    def _inv(yr, yi):
+        with span("zogy.fft"):
+            return ifft2_split(yr, yi)
+
     def _inv_pair(A, B):
         """Two real inverses in one transform: for hermitian A, B the
         inverse of Y = A + iB has re = a, im = b."""
         (Ar, Ai), (Br, Bi) = A, B
-        return ifft2_split(Ar - Bi, Ai + Br)
+        return _inv(Ar - Bi, Ai + Br)
 
-    Zr, Zi = fft2_split(new.contiguous(), ref.contiguous())   # (Wp, Hp)
+    Zr, Zi = _fwd(new.contiguous(), ref.contiguous())   # (Wp, Hp)
     (Nr, Ni), (Rr, Ri) = _unpack(Zr, Zi)
 
     pn = _otf_scr(psf_new, shape)
@@ -321,7 +332,7 @@ def _zogy_split(new, ref, psf_new, psf_ref, sn, sr, fn, fr,
             # full-frame kernels: one packed inverse gives both, one
             # packed forward re-transforms the squares (exact path)
             kn, kr = _inv_pair(kn_hat, kr_hat)
-            return _unpack(*fft2_split(kn ** 2, kr ** 2))
+            return _unpack(*_fwd(kn ** 2, kr ** 2))
         return _otf_scr(kn2, shape), _otf_scr(kr2, shape)
 
     D = None
@@ -332,8 +343,7 @@ def _zogy_split(new, ref, psf_new, psf_ref, sn, sr, fn, fr,
               else torch.clamp(torch.minimum(var_new, vcap), min=0.0))
         Vr = (sr ** 2 * torch.ones(shape, device=dev) if var_ref is None
               else torch.clamp(torch.minimum(var_ref, vcap), min=0.0))
-        Vn_hat, Vr_hat = _unpack(*fft2_split(Vn.contiguous(),
-                                             Vr.contiguous()))
+        Vn_hat, Vr_hat = _unpack(*_fwd(Vn.contiguous(), Vr.contiguous()))
         a = _cm(kn2_hat[0], kn2_hat[1], *Vn_hat)
         b = _cm(kr2_hat[0], kr2_hat[1], *Vr_hat)
         D, V_src = _inv_pair(D_hat, (a[0] + b[0], a[1] + b[1]))
@@ -354,7 +364,7 @@ def _zogy_split(new, ref, psf_new, psf_ref, sn, sr, fn, fr,
             D, src = _inv_pair(D_hat, (a[0] + b[0], a[1] + b[1]))
             V_src = V_src + torch.clamp(src, min=0.0)
     if D is None:
-        D = ifft2_split(*D_hat)[0]
+        D = _inv(*D_hat)[0]
 
     Sn, Sr = _inv_pair(_cm(kn_hat[0], kn_hat[1], Nr, Ni),
                        _cm(kr_hat[0], kr_hat[1], Rr, Ri))
@@ -434,32 +444,38 @@ def zogy_subtract(new, ref, psf_new, psf_ref, sn, sr,
     # unpack to half right after the forward and re-mirror before the
     # inverse
 
+    # each pair of transforms (and the single inverse) is a span
     def _fwd_pair(a, b):
         """Forward half-plane spectra of two real frames."""
-        if not pack:
-            return torch.fft.rfft2(a), torch.fft.rfft2(b)
-        Z = torch.fft.fft2(torch.complex(a, b))
-        Zh = Z[:, :Wr]
-        # Z(-k) on the half plane only: columns (W - v) mod W for v in
-        # [0, Wr) are [0, W-1, ..., W-Wr+1]; rows (H - u) mod H
-        cols = torch.cat([Z[:, :1], torch.flip(Z[:, Wp - Wr + 1:], [1])], 1)
-        Zc = torch.conj(torch.roll(torch.flip(cols, [0]), 1, 0))
-        return 0.5 * (Zh + Zc), -0.5j * (Zh - Zc)
+        with span("zogy.fft"):
+            if not pack:
+                return torch.fft.rfft2(a), torch.fft.rfft2(b)
+            Z = torch.fft.fft2(torch.complex(a, b))
+            Zh = Z[:, :Wr]
+            # Z(-k) on the half plane only: columns (W - v) mod W for v
+            # in [0, Wr) are [0, W-1, ..., W-Wr+1]; rows (H - u) mod H
+            cols = torch.cat([Z[:, :1], torch.flip(Z[:, Wp - Wr + 1:], [1])],
+                             1)
+            Zc = torch.conj(torch.roll(torch.flip(cols, [0]), 1, 0))
+            return 0.5 * (Zh + Zc), -0.5j * (Zh - Zc)
 
     def _inv_pair(A, B):
         """Two real inverse transforms from half-plane spectra."""
-        if not pack:
-            return (torch.fft.irfft2(A, s=shape),
-                    torch.fft.irfft2(B, s=shape))
-        head = A + 1j * B
-        # tail of A+iB at mirrored frequencies: conj((A - iB)[-u, W-v])
-        t = torch.conj(torch.flip((A - 1j * B)[:, 1:Wp - Wr + 1], [1]))
-        t = torch.roll(torch.flip(t, [0]), 1, 0)
-        Y = torch.fft.ifft2(torch.cat([head, t], dim=1))
-        return torch.real(Y), torch.imag(Y)
+        with span("zogy.fft"):
+            if not pack:
+                return (torch.fft.irfft2(A, s=shape),
+                        torch.fft.irfft2(B, s=shape))
+            head = A + 1j * B
+            # tail of A+iB at mirrored frequencies: conj((A - iB)[-u,
+            # W-v])
+            t = torch.conj(torch.flip((A - 1j * B)[:, 1:Wp - Wr + 1], [1]))
+            t = torch.roll(torch.flip(t, [0]), 1, 0)
+            Y = torch.fft.ifft2(torch.cat([head, t], dim=1))
+            return torch.real(Y), torch.imag(Y)
 
     def _inv_one(A):
-        return torch.fft.irfft2(A, s=shape)
+        with span("zogy.fft"):
+            return torch.fft.irfft2(A, s=shape)
 
     N_hat, R_hat = _fwd_pair(new, ref)
     Pn = psf_to_otf(psf_new, shape)

@@ -66,7 +66,7 @@ from blackbox_tpu_torch.pipeline.headers import (
 from blackbox_tpu_torch.pipeline.reduce import (
     ReduceContext, calibrate_detector, extract_catalog, to_device)
 from blackbox_tpu_torch.qc.engine import run_qc_check
-from blackbox_tpu_torch.utils.timing import timer
+from blackbox_tpu_torch.utils.timing import span, timer
 
 log = logging.getLogger(__name__)
 
@@ -310,9 +310,12 @@ class Pipeline:
         t0 = time.time()
         self._spans = {}
         try:
-            res = self._process(path, force, img_reduce, cat_extract,
-                                trans_extract,
-                                device_override=device_override)
+            # inside a recording, the frame's stages (the timers) share
+            # this root span
+            with span("process_file", file=os.path.basename(path)):
+                res = self._process(path, force, img_reduce, cat_extract,
+                                    trans_extract,
+                                    device_override=device_override)
         except Exception as e:          # frame-level containment
             log.exception("frame %s failed", path)
             res = FrameResult(status="error",

@@ -40,6 +40,7 @@ from blackbox_tpu_torch.ops.satdet import (SatDetParams, detect_trail_segments,
                                           detect_trails)
 from blackbox_tpu_torch.ops.stats import masked_median, median
 from blackbox_tpu_torch.ops.xtalk import xtalk_correct, xtalk_correct_mosaic
+from blackbox_tpu_torch.utils.timing import span
 
 # ReduceContext fields holding a frozen parameter dataclass
 _NESTED = {"geom": CCDGeometry, "os_params": OverscanParams,
@@ -150,6 +151,14 @@ def calibrate_detector(ctx: ReduceContext, chan_data, os_vert, os_hori,
     nonlin_coeffs : (C, D) non-linearity polynomial, applied when
             ``ctx.correct_nonlin`` is set, or None
     """
+    with span("calibration"):
+        return _calibrate(ctx, chan_data, os_vert, os_hori, mbias, mflat,
+                          bpm, xtalk_coeffs, nonlin_coeffs)
+
+
+def _calibrate(ctx, chan_data, os_vert, os_hori, mbias, mflat, bpm,
+               xtalk_coeffs, nonlin_coeffs):
+    """:func:`calibrate_detector`'s steps, each stage in a span."""
     geom = ctx.geom
     dev = chan_data.device
     gains = torch.tensor(ctx.gains, dtype=torch.float32, device=dev)
@@ -157,10 +166,11 @@ def calibrate_detector(ctx: ReduceContext, chan_data, os_vert, os_hori,
                                 device=dev)
     stats = {}
 
-    chan, osv, osh = gain_correct(chan_data, os_vert, os_hori, gains)
-    chan, os_stats = overscan_correct(chan, osv, osh,
-                                      satlevel_e=satlevel_adu * gains,
-                                      params=ctx.os_params)
+    with span("calibration.overscan"):
+        chan, osv, osh = gain_correct(chan_data, os_vert, os_hori, gains)
+        chan, os_stats = overscan_correct(chan, osv, osh,
+                                          satlevel_e=satlevel_adu * gains,
+                                          params=ctx.os_params)
     stats.update(os_stats)
 
     if ctx.correct_nonlin and nonlin_coeffs is not None:
@@ -170,10 +180,11 @@ def calibrate_detector(ctx: ReduceContext, chan_data, os_vert, os_hori,
     if ctx.subtract_mbias and mbias is not None:
         chan = chan - mbias
 
-    chan, mask, mstats = build_mask(chan, bpm, satlevel_adu, gains,
-                                    os_stats["biasm"], nx=geom.nx)
-    stats.update({k: v for k, v in mstats.items() if k != "mask_sat"})
-    stats["nobj_sat"] = euler_count(geom.assemble(mstats["mask_sat"]))
+    with span("calibration.mask"):
+        chan, mask, mstats = build_mask(chan, bpm, satlevel_adu, gains,
+                                        os_stats["biasm"], nx=geom.nx)
+        stats.update({k: v for k, v in mstats.items() if k != "mask_sat"})
+        stats["nobj_sat"] = euler_count(geom.assemble(mstats["mask_sat"]))
 
     if mflat is not None:
         chan = chan / torch.clamp(mflat, min=1e-3)
@@ -182,64 +193,74 @@ def calibrate_detector(ctx: ReduceContext, chan_data, os_vert, os_hori,
     mask_m = geom.assemble(mask)
 
     # cosmic rays (every already-masked pixel is excluded)
-    clean, crmask, _ = lacosmic(sci, mask_m != 0, stats["rdnoise"],
-                                ctx.lac_params)
+    with span("lacosmic"):
+        clean, crmask, _ = lacosmic(sci, mask_m != 0, stats["rdnoise"],
+                                    ctx.lac_params)
     mask_m = torch.where(crmask, mask_m | maskbits.COSMIC, mask_m)
     # fill holes before Euler counting: the Euler number equals the
     # component count only for hole-free masks
     stats["ncosmics"] = euler_count(fill_holes(crmask, iterations=1))
 
     if xtalk_coeffs is not None:
-        if geom.ny == 2:
-            clean = xtalk_correct_mosaic(clean, mask_m, xtalk_coeffs,
-                                         geom.ny, geom.nx)
-        else:
-            ch = xtalk_correct(geom.disassemble(clean),
-                               geom.disassemble(mask_m), xtalk_coeffs,
-                               geom.nx)
-            clean = geom.assemble(ch)
+        with span("calibration.xtalk"):
+            if geom.ny == 2:
+                clean = xtalk_correct_mosaic(clean, mask_m, xtalk_coeffs,
+                                             geom.ny, geom.nx)
+            else:
+                ch = xtalk_correct(geom.disassemble(clean),
+                                   geom.disassemble(mask_m), xtalk_coeffs,
+                                   geom.nx)
+                clean = geom.assemble(ch)
 
     # satellite trails; EDGE pixels are excluded too (overscan artefacts
     # forming straight lines along the channel seams)
     if ctx.detect_sats:
-        excl, seam_rows, seam_cols = trail_exclusion(geom, mask_m)
-        if ctx.detect_sat_segments:
-            # full-frame pass first (more sensitive to faint full
-            # trails), then the tiled segment pass for short streaks,
-            # seeded with the full-frame lines so NSATS counts each
-            # physical trail once
-            trail_mask, ntrails, _, lines = detect_trails(
-                clean, excl, ctx.sat_params, seam_rows=seam_rows,
-                seam_cols=seam_cols, want_lines=True)
-            seg_mask, n_seg, _ = detect_trail_segments(
-                clean, excl, ctx.sat_params, seam_rows=seam_rows,
-                seam_cols=seam_cols, exclude_lines=lines)
-            trail_mask = trail_mask | seg_mask
-            ntrails = ntrails + n_seg
-        else:
-            trail_mask, ntrails, _ = detect_trails(
-                clean, excl, ctx.sat_params, seam_rows=seam_rows,
-                seam_cols=seam_cols)
-        mask_m = torch.where(trail_mask & ((mask_m & maskbits.EDGE) == 0),
-                             mask_m | maskbits.SATELLITE, mask_m)
-        stats["nsats"] = ntrails
+        with span("calibration.trails"):
+            mask_m, stats["nsats"] = _trails(ctx, clean, mask_m)
     else:
         stats["nsats"] = torch.zeros((), dtype=torch.int32, device=dev)
 
     # edge pixels -> channel median over an 8x8-subsampled grid
-    ch = geom.disassemble(clean)
-    mk = geom.disassemble(mask_m)
-    C = ch.shape[0]
-    ch_s = ch[:, ::8, ::8].reshape(C, -1)
-    mk_s = ((mk[:, ::8, ::8] & maskbits.EDGE) != 0).reshape(C, -1)
-    chan_med = torch.nan_to_num(masked_median(ch_s, mk_s, axis=1))
-    edge = (mk & maskbits.EDGE) != 0
-    clean = geom.assemble(torch.where(edge, chan_med[:, None, None], ch))
+    with span("calibration.edge_fill"):
+        ch = geom.disassemble(clean)
+        mk = geom.disassemble(mask_m)
+        C = ch.shape[0]
+        ch_s = ch[:, ::8, ::8].reshape(C, -1)
+        mk_s = ((mk[:, ::8, ::8] & maskbits.EDGE) != 0).reshape(C, -1)
+        chan_med = torch.nan_to_num(masked_median(ch_s, mk_s, axis=1))
+        edge = (mk & maskbits.EDGE) != 0
+        clean = geom.assemble(torch.where(edge, chan_med[:, None, None], ch))
 
     # per-bit mask counts for the mask header
     for name, bit in maskbits.BITS.items():
         stats[f"n_{name}"] = _count((mask_m & bit) == bit)
     return clean, mask_m, stats
+
+
+def _trails(ctx, clean, mask_m):
+    """The satellite trails of a frame: (mask with the SATELLITE bit
+    set on them, outside EDGE pixels; their number)."""
+    excl, seam_rows, seam_cols = trail_exclusion(ctx.geom, mask_m)
+    if ctx.detect_sat_segments:
+        # full-frame pass first (more sensitive to faint full
+        # trails), then the tiled segment pass for short streaks,
+        # seeded with the full-frame lines so NSATS counts each
+        # physical trail once
+        trail_mask, ntrails, _, lines = detect_trails(
+            clean, excl, ctx.sat_params, seam_rows=seam_rows,
+            seam_cols=seam_cols, want_lines=True)
+        seg_mask, n_seg, _ = detect_trail_segments(
+            clean, excl, ctx.sat_params, seam_rows=seam_rows,
+            seam_cols=seam_cols, exclude_lines=lines)
+        trail_mask = trail_mask | seg_mask
+        ntrails = ntrails + n_seg
+    else:
+        trail_mask, ntrails, _ = detect_trails(
+            clean, excl, ctx.sat_params, seam_rows=seam_rows,
+            seam_cols=seam_cols)
+    mask_m = torch.where(trail_mask & ((mask_m & maskbits.EDGE) == 0),
+                         mask_m | maskbits.SATELLITE, mask_m)
+    return mask_m, ntrails
 
 
 def trail_exclusion(geom, mask_m):
@@ -259,17 +280,20 @@ def trail_exclusion(geom, mask_m):
 
 def extract_catalog(ctx: ReduceContext, sci, mask_m):
     """Background + detection + aperture photometry on a calibrated frame."""
-    bad = mask_m != 0
-    mesh, stdm = background_mesh(sci, bad, ctx.bkg_boxsize,
-                                 nsigma=ctx.bkg_nsigma,
-                                 filtersize=ctx.bkg_filtersize)
-    bkg = mini2back(mesh, sci.shape, ctx.bkg_boxsize)
-    bstd = mini2back(stdm, sci.shape, ctx.bkg_boxsize)
-    sub = sci - bkg
-    excl = (mask_m & (maskbits.EDGE | maskbits.BAD
-                      | maskbits.SATELLITE)) != 0
-    seg, n = detect_segments(sub, bstd, excl, ctx.det_params)
-    return catalog_tail(ctx, sci, sub, bkg, bstd, seg, n, mesh, stdm)
+    with span("catalog"):
+        with span("catalog.background"):
+            bad = mask_m != 0
+            mesh, stdm = background_mesh(sci, bad, ctx.bkg_boxsize,
+                                         nsigma=ctx.bkg_nsigma,
+                                         filtersize=ctx.bkg_filtersize)
+            bkg = mini2back(mesh, sci.shape, ctx.bkg_boxsize)
+            bstd = mini2back(stdm, sci.shape, ctx.bkg_boxsize)
+            sub = sci - bkg
+        with span("catalog.detect"):
+            excl = (mask_m & (maskbits.EDGE | maskbits.BAD
+                              | maskbits.SATELLITE)) != 0
+            seg, n = detect_segments(sub, bstd, excl, ctx.det_params)
+        return catalog_tail(ctx, sci, sub, bkg, bstd, seg, n, mesh, stdm)
 
 
 def catalog_tail(ctx: ReduceContext, sci, sub, bkg, bstd, seg, n, mesh,
@@ -311,17 +335,18 @@ def catalog_tail(ctx: ReduceContext, sci, sub, bkg, bstd, seg, n, mesh,
 
     # spatially-varying PSF model + optimal PSF fluxes
     if ctx.fit_psf:
-        model = build_psf(sub, bstd, cat, sci.shape, ctx.psf_params,
-                          n_active=n)
-        fpsf, fpsf_err = psf_photometry(sub, bstd, model, cat["x"],
-                                        cat["y"], n_active=n)
-        cat["flux_psf"] = fpsf
-        cat["fluxerr_psf"] = fpsf_err
-        cen = psf_at(model, 0.5 * sci.shape[1], 0.5 * sci.shape[0])
-        stats["psf_nstars"] = model.nstars
-        stats["psf_chi2"] = model.chi2
-        stats["psf_fwhm_pix"] = psf_fwhm(cen[None])[0]
-        out["psf"] = model
+        with span("catalog.psf"):
+            model = build_psf(sub, bstd, cat, sci.shape, ctx.psf_params,
+                              n_active=n)
+            fpsf, fpsf_err = psf_photometry(sub, bstd, model, cat["x"],
+                                            cat["y"], n_active=n)
+            cat["flux_psf"] = fpsf
+            cat["fluxerr_psf"] = fpsf_err
+            cen = psf_at(model, 0.5 * sci.shape[1], 0.5 * sci.shape[0])
+            stats["psf_nstars"] = model.nstars
+            stats["psf_chi2"] = model.chi2
+            stats["psf_fwhm_pix"] = psf_fwhm(cen[None])[0]
+            out["psf"] = model
     return out
 
 
@@ -354,17 +379,18 @@ def make_reduce_fn(ctx: ReduceContext, with_catalog: bool = True,
 
     @torch.inference_mode()
     def fn(chan_data, os_vert, os_hori, mbias, mflat, bpm, xtalk_coeffs):
-        chan_data, os_vert, os_hori, mbias, mflat, bpm, xtalk_coeffs = (
-            to_device((chan_data, os_vert, os_hori, mbias, mflat, bpm,
-                       xtalk_coeffs), dev))
-        sci, mask_m, stats = calibrate_detector(
-            ctx, chan_data, os_vert, os_hori, mbias, mflat, bpm,
-            xtalk_coeffs)
-        out = {"image": sci, "mask": mask_m, "stats": stats}
-        if with_catalog:
-            ext = extract_catalog(ctx, sci, mask_m)
-            out["stats"] = {**stats, **ext.pop("stats")}
-            out.update(ext)
-        return out
+        with span("reduce"):
+            chan_data, os_vert, os_hori, mbias, mflat, bpm, xtalk_coeffs = (
+                to_device((chan_data, os_vert, os_hori, mbias, mflat, bpm,
+                           xtalk_coeffs), dev))
+            sci, mask_m, stats = calibrate_detector(
+                ctx, chan_data, os_vert, os_hori, mbias, mflat, bpm,
+                xtalk_coeffs)
+            out = {"image": sci, "mask": mask_m, "stats": stats}
+            if with_catalog:
+                ext = extract_catalog(ctx, sci, mask_m)
+                out["stats"] = {**stats, **ext.pop("stats")}
+                out.update(ext)
+            return out
 
     return fn

@@ -36,6 +36,7 @@ from blackbox_tpu_torch.ops.warp import (grid_row_margin, grid_shift_ranges,
 from blackbox_tpu_torch.ops.zogy import ZogyParams, zogy_subtract
 from blackbox_tpu_torch.pipeline.reduce import (calibrate_detector,
                                                 extract_catalog, to_device)
+from blackbox_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass
@@ -195,32 +196,35 @@ def _science_back(sub, bstd, mask_m, psf_n, cat, sn,
     srcs3 = (ref_sub, ref_std, ref_mask)
     modes3 = ("lanczos", "nearest", "nearest")
     fills3 = (0.0, sr, maskbits.EDGE)
-    if remap_ranges is not None:
-        if remap_step is not None and len(grid) == 2:
-            grid = (grid[0], grid[1], int(remap_step))
-        ref_sub_r, ref_std_r, ref_mask_r = warp_shift2pass(
-            srcs3, modes3, fills3, grid, remap_ranges)
-    else:
-        if len(grid) == 3:
-            raise ValueError("the (sy, sx, step) grid form needs "
-                             "remap_ranges (the shift2pass path)")
-        H = ref_sub.shape[0]
-        block = next(b for b in (1320, 660, 264, 132, 60, 22, 11, 8,
-                                 4, 2, 1) if H % b == 0)
-        ref_sub_r, ref_std_r, ref_mask_r = resample_blocked(
-            srcs3, modes3, fills3, grid, block_rows=block,
-            margin=remap_margin)
+    with span("warp"):
+        if remap_ranges is not None:
+            if remap_step is not None and len(grid) == 2:
+                grid = (grid[0], grid[1], int(remap_step))
+            ref_sub_r, ref_std_r, ref_mask_r = warp_shift2pass(
+                srcs3, modes3, fills3, grid, remap_ranges)
+        else:
+            if len(grid) == 3:
+                raise ValueError("the (sy, sx, step) grid form needs "
+                                 "remap_ranges (the shift2pass path)")
+            H = ref_sub.shape[0]
+            block = next(b for b in (1320, 660, 264, 132, 60, 22, 11, 8,
+                                     4, 2, 1) if H % b == 0)
+            ref_sub_r, ref_std_r, ref_mask_r = resample_blocked(
+                srcs3, modes3, fills3, grid, block_rows=block,
+                margin=remap_margin)
 
     # the measured dx/dy ride the params dataclass into the
     # astrometric-variance term
     zp = dataclasses.replace(zogy_params, dx=dx_rms, dy=dy_rms)
-    out = zogy_subtract(sub, ref_sub_r, psf_n, psf_ref, sn, sr, fn=1.0,
-                        fr=fratio, var_bkg_new=bstd ** 2,
-                        var_bkg_ref=ref_std_r ** 2, params=zp,
-                        want_psf_d=False)
-    tcat, ntrans = extract_transients(out, mask_m, ref_mask_r, trans_params)
-
-    tstats = transient_stats(tcat, ntrans)
+    with span("zogy"):
+        out = zogy_subtract(sub, ref_sub_r, psf_n, psf_ref, sn, sr, fn=1.0,
+                            fr=fratio, var_bkg_new=bstd ** 2,
+                            var_bkg_ref=ref_std_r ** 2, params=zp,
+                            want_psf_d=False)
+    with span("transients"):
+        tcat, ntrans = extract_transients(out, mask_m, ref_mask_r,
+                                          trans_params)
+        tstats = transient_stats(tcat, ntrans)
     tstats.update({"z_fratio": fratio, "z_fratio_std": fstd,
                    "z_dxrms": dx_rms, "z_dyrms": dy_rms,
                    "z_nmatch": nmatch, "z_fd": out["F_D"]})
@@ -278,17 +282,20 @@ def make_science_programs(ctx, xtalk_coeffs=None,
 
     @torch.inference_mode()
     def front(chan, osv, osh, mbias, mflat, bpm):
-        return _science_front(ctx, *to_device(
-            (chan, osv, osh, mbias, mflat, bpm), dev), xtalk)
+        with span("science.front"):
+            return _science_front(ctx, *to_device(
+                (chan, osv, osh, mbias, mflat, bpm), dev), xtalk)
 
+    # one frame is in flight: the back half joins its front's frame
     @torch.inference_mode()
     def back(sub, bstd, mask_m, psf_n, cat, sn, ref_sub, ref_std,
              ref_mask, grid, psf_ref, sr, ref_cat):
-        args = to_device((sub, bstd, mask_m, psf_n, cat, sn, ref_sub,
-                          ref_std, ref_mask, grid, psf_ref, sr, ref_cat),
-                         dev)
-        return _science_back(*args, zogy_params, trans_params,
-                             remap_margin, remap_ranges, remap_step)
+        with span("science.back", join="science.front"):
+            args = to_device((sub, bstd, mask_m, psf_n, cat, sn, ref_sub,
+                              ref_std, ref_mask, grid, psf_ref, sr,
+                              ref_cat), dev)
+            return _science_back(*args, zogy_params, trans_params,
+                                 remap_margin, remap_ranges, remap_step)
 
     return front, back
 
@@ -324,14 +331,14 @@ def run_subtraction(new: SubtractionInput, ref: SubtractionInput,
     step = 32
     sy, sx, _, _ = remap_grid_coarse(ref.wcs, new.wcs, shape, step=step)
     ranges = grid_shift_ranges(sy, sx, step=step, blocks=8)
-    span = max(max(r1 - r0 for r0, r1 in ranges[0]),
-               max(r1 - r0 for r0, r1 in ranges[1]))
+    width = max(max(r1 - r0 for r0, r1 in ranges[0]),
+                max(r1 - r0 for r0, r1 in ranges[1]))
     # second-order displacement bound of the two-pass form:
     # |d(ys)/dx| * |dxs| (and symmetric) must stay well under a pixel
     dy_dx = float(np.max(np.abs(np.diff(sy, axis=1)))) / step
     dx_dy = float(np.max(np.abs(np.diff(sx, axis=0)))) / step
     rmax = max(abs(v) for pair in ranges[0] + ranges[1] for v in pair)
-    fast = span <= 40 and max(dy_dx, dx_dy) * rmax < 0.05
+    fast = width <= 40 and max(dy_dx, dx_dy) * rmax < 0.05
     if fast:
         grid_c = (torch.as_tensor(sy, dtype=torch.float32, device=dev),
                   torch.as_tensor(sx, dtype=torch.float32, device=dev))
@@ -363,29 +370,33 @@ def run_subtraction(new: SubtractionInput, ref: SubtractionInput,
     srcs3 = (ref.image - ref.bkg, ref.bkg_std, ref.mask)
     modes3 = ("lanczos", "nearest", "nearest")
     fills3 = (0.0, sr, maskbits.EDGE)
-    if fast:
-        ref_sub, ref_std_r, ref_mask_r = warp_shift2pass(
-            srcs3, modes3, fills3, (grid_c[0], grid_c[1], step), ranges)
-    else:
-        block = next(b for b in (1320, 660, 264, 132, 60, 22, 11,
-                                 8, 4, 2, 1) if shape[0] % b == 0)
-        margin = grid_row_margin(sy, step=step)
-        ref_sub, ref_std_r, ref_mask_r = resample_blocked(
-            srcs3, modes3, fills3, grid_c, block_rows=block,
-            margin=max(margin, block // 4))
+    with span("warp"):
+        if fast:
+            ref_sub, ref_std_r, ref_mask_r = warp_shift2pass(
+                srcs3, modes3, fills3, (grid_c[0], grid_c[1], step), ranges)
+        else:
+            block = next(b for b in (1320, 660, 264, 132, 60, 22, 11,
+                                     8, 4, 2, 1) if shape[0] % b == 0)
+            margin = grid_row_margin(sy, step=step)
+            ref_sub, ref_std_r, ref_mask_r = resample_blocked(
+                srcs3, modes3, fills3, grid_c, block_rows=block,
+                margin=max(margin, block // 4))
     del srcs3, grid_c
     new_sub = new.image - new.bkg
 
     # smooth background-variance maps + spectral Poisson source term
-    out = zogy_subtract(new_sub, ref_sub, psf_n, psf_r, sn, sr,
-                        fn=1.0, fr=torch.tensor(fratio, dtype=torch.float32,
-                                                device=dev),
-                        var_bkg_new=new.bkg_std ** 2,
-                        var_bkg_ref=ref_std_r ** 2, params=zp,
-                        want_psf_d=False)
+    with span("zogy"):
+        out = zogy_subtract(new_sub, ref_sub, psf_n, psf_r, sn, sr,
+                            fn=1.0, fr=torch.tensor(fratio,
+                                                    dtype=torch.float32,
+                                                    device=dev),
+                            var_bkg_new=new.bkg_std ** 2,
+                            var_bkg_ref=ref_std_r ** 2, params=zp,
+                            want_psf_d=False)
     del new_sub, ref_std_r
-    cat, ntrans = extract_transients(out, new.mask, ref_mask_r,
-                                     trans_params)
+    with span("transients"):
+        cat, ntrans = extract_transients(out, new.mask, ref_mask_r,
+                                         trans_params)
 
     stats = {
         "z_fratio": fratio, "z_fratio_std": fstd,

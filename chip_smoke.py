@@ -716,32 +716,31 @@ def k4_live(calls, label, card):
 @contextlib.contextmanager
 def lacosmic_watch(keep_input: bool = False):
     """What the default L.A.Cosmic does inside the block: the yielded
-    dict's "passes" gets each windowed pass's info (nact, the branch
-    taken, chunks, changed windows), and with ``keep_input`` its
-    "input" a copy, on the card, of the (data, inmask, rdnoise) of the
-    last call ``calibrate_detector`` made."""
-    from blackbox_tpu_torch.ops import cosmics
+    dict's "passes" gets, when the block ends, each windowed pass's
+    attributes (nact, the branch taken, chunks, windows gathered,
+    changed windows), read from the program's ``lacosmic.pass`` spans
+    under ``utils.timing.recording``; with ``keep_input`` its "input" a
+    copy, on the card, of the (data, inmask, rdnoise) of the last call
+    ``calibrate_detector`` made."""
     from blackbox_tpu_torch.pipeline import reduce
+    from blackbox_tpu_torch.utils.timing import recording
     seen = {"passes": [], "input": None}
-    orig_pass, orig_lac = cosmics._windowed_pass, reduce.lacosmic
-
-    def watch_pass(*a, **k):
-        out = orig_pass(*a, **k)
-        seen["passes"].append(out[2])
-        return out
+    orig_lac = reduce.lacosmic
 
     def watch_lac(data, inmask, rdnoise, params, *a, **k):
         seen["input"] = (data.clone(), inmask.clone(),
                          torch.as_tensor(rdnoise).clone())
         return orig_lac(data, inmask, rdnoise, params, *a, **k)
 
-    cosmics._windowed_pass = watch_pass
     if keep_input:
         reduce.lacosmic = watch_lac
     try:
-        yield seen
+        with recording() as rec:
+            yield seen
+        spans, _ = rec.drain()
+        seen["passes"].extend(s.attrs for s in spans
+                              if s.name == "lacosmic.pass")
     finally:
-        cosmics._windowed_pass = orig_pass
         reduce.lacosmic = orig_lac
 
 

@@ -136,8 +136,16 @@ HOST_COPIES = {
     "utils.locks": {},
     "utils.timing": {
         "device_memory_stats": "reads PyTorch's CUDA allocator",
-        "timer": "synchronises a CUDA device; can sum spans into a dict",
-        "profile_trace": "torch.profiler instead of jax.profiler"},
+        "timer": "synchronises a CUDA device; can sum spans into a dict; "
+                 "is a span inside a recording",
+        "profile_trace": "torch.profiler instead of jax.profiler",
+        "_NullSpan": "the port's spans and counters (none in the JAX "
+                     "package)",
+        "Span": "the port's spans and counters",
+        "Recorder": "the port's spans and counters",
+        "span": "the port's spans and counters",
+        "count": "the port's spans and counters",
+        "recording": "the port's spans and counters"},
     "pipeline.headers": {},
     "pipeline.catalogs": {
         "device_cat_to_columns": "moves the catalog's tensors to the host "
