@@ -3,8 +3,11 @@ saturation close/fill (port of :mod:`blackbox_tpu.ops.morphology`).
 
 The JAX package runs these on bit-packed words, a TPU memory-layout
 device; here they run on bool planes with the same operations, so every
-pixel (and every count made from them) is the same.  All functions take
-``(..., H, W)`` bool tensors and work over any leading batch dims.
+pixel (and every count made from them) is the same.  The hole fill on
+the card is the CUDA kernel ``csrc/fillholes.cu`` (K8), which packs the
+planes into words itself and runs each sweep as a carry scan.  All
+functions take ``(..., H, W)`` bool tensors and work over any leading
+batch dims.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from blackbox_tpu_torch import kernels
 from blackbox_tpu_torch.utils.timing import span
 
 
@@ -83,10 +87,43 @@ def fill_holes(m: torch.Tensor, iterations: int = 3,
     of four directional sweeps (down, up, right, left); each sweep is a
     log-doubling segmented scan, R <- R | (shift(R, d) & O_run),
     O_run <- O_run & shift(O_run, d), d doubling.  ``size`` is the JAX
-    package's parameter, which it does not use either.
+    package's parameter, which it does not use either.  CPU tensors take
+    that plain version; CUDA tensors run the kernel
+    (``csrc/fillholes.cu``), one launch a call.
     """
-    with span("fill_holes"):
-        return _fill_holes(m, iterations)
+    H, W = m.shape[-2], m.shape[-1]
+    plain = m.device.type == "cpu"
+    with span("fill_holes", planes=m.numel() // max(H * W, 1), H=H, W=W,
+              route="plain" if plain else "kernel"):
+        if plain:
+            return _fill_holes(m, iterations)
+        return _fill_holes_cuda(m, iterations)
+
+
+def _fill_holes_cuda(m: torch.Tensor, iterations: int) -> torch.Tensor:
+    if m.dtype != torch.bool or m.dim() < 2:
+        raise ValueError("fill_holes: (..., H, W) bool mask expected")
+    m = m.contiguous()
+    kernels.require_cuda("fill_holes", m)
+    H, W = m.shape[-2], m.shape[-1]
+    if m.numel() == 0:
+        return m.clone()
+    planes = m.numel() // (H * W)
+    words = planes * H * -(-W // 32)          # 32 pixels a word
+    words = -(-words // 32) * 32
+    # the packed complement and reach and the segments' carries, a
+    # plane of words each
+    scratch = torch.empty(4 * words, dtype=torch.int32, device=m.device)
+    out = torch.empty_like(m)
+    with torch.cuda.device(m.device):
+        kernels.check(kernels.lib().bbt_fill_holes(
+            m.data_ptr(), out.data_ptr(), scratch.data_ptr(), planes, H, W,
+            max(iterations, 1), kernels.stream_of(m)), "fill_holes")
+    fill_holes.launches += 1
+    return out
+
+
+fill_holes.launches = 0
 
 
 def _fill_holes(m: torch.Tensor, iterations: int) -> torch.Tensor:

@@ -20,7 +20,10 @@ Phases, each printing its own lines:
    timed apart under ``torch.profiler``), and the fused detection (K5)
    in its detection form (the star field, 9 taps, a std map, an
    exclusion, 32 steps) and its transient form (|x|, no taps, 48
-   steps).  Both times come from CUDA events (K4's two calls, ~0.1 ms
+   steps), and the hole fill (K8) on a frame's two calls, a
+   16 x 5280 x 1320 stack of closed saturated-star masks and a 10560²
+   cosmic mosaic, at one round and at three.  Both times come from CUDA
+   events (K4's two calls, ~0.1 ms
    each, as the median of 25 launches each timed apart from an idle
    card, ``median_ms``); each kernel's bound is
    worked out from the bytes it must move and the operations it must
@@ -193,7 +196,9 @@ of a phase's path
 must have moved, K1 must show 1 launch per catalog frame and 2 per
 science frame (its 48 transient steps are one launch), K6 6 per science
 frame, K7 3 per frame it calibrates (it counts iterations, four CUDA
-launches each) and K2 none in phase 5; the night must show K1 3 times
+launches each) and K2 none in phase 5; K8 must show 2 launches a frame
+in phase 3 and be launched in every phase that calibrates a frame (3,
+4, 5, 7, 8, 9, 10 and 12); the night must show K1 3 times
 (two catalogs, one subtraction) and K6 6 times, phase 8 K6 6 times
 (one subtraction), phase 9 K1 twice for the U-Net passes over phase 3's
 frame and, in the fifth visit, once for each U-Net, catalog and
@@ -671,6 +676,9 @@ def check_kernels(card, prev):
                                     for k in ("current", "previous")}))
     results.append(check_fft(card))
     results.append(check_detect(card, img))
+    del img, seg
+    torch.cuda.empty_cache()
+    results.append(check_fill_holes(card))
     return results
 
 
@@ -962,6 +970,76 @@ def check_detect(card, img):
                 transient_ms=forms_ms["transient"])
 
 
+
+def saturation_stack(C, H, W, gen):
+    """The mask stage's hole-fill input: C channels of saturated stars
+    (cores, rings around a hole, bleed columns), closed as
+    ``satcon_close_fill`` closes them (tests/test_torch_cuda.py's
+    channel-stack case)."""
+    from blackbox_tpu_torch.ops import morphology as M
+    dev = gen.device
+    stars = torch.rand((C, H, W), generator=gen, device=dev) < 3e-5
+    rings = torch.rand((C, H, W), generator=gen, device=dev) < 1e-5
+    sat = M.binary_dilation(stars, size=9)
+    sat |= (M.binary_dilation(rings, size=17)
+            & ~M.binary_dilation(rings, size=11))
+    bleed = stars & (torch.rand(stars.shape, generator=gen, device=dev)
+                     < 0.3)
+    sat |= torch.nn.functional.max_pool2d(
+        bleed.view(C, 1, H, W).float(), (61, 3), stride=1,
+        padding=(30, 1)).view(C, H, W) > 0.5
+    return M._erode3(M._dilate3(M._dilate3(sat)))
+
+
+def cosmic_mosaic(H, W, gen):
+    """The cosmic-mask call's input: small hits, some of them rings
+    around one pixel (tests/test_torch_cuda.py's mosaic case)."""
+    from blackbox_tpu_torch.ops import morphology as M
+    dev = gen.device
+    hits = torch.rand((H, W), generator=gen, device=dev) < 8e-6
+    rings = torch.rand((H, W), generator=gen, device=dev) < 2e-6
+    return M.binary_dilation(hits) | (M.binary_dilation(rings) & ~rings)
+
+
+def check_fill_holes(card):
+    """K8 against the plain hole fill on the card, bit for bit, on a
+    frame's two calls: the closed saturation stack (16 x 5280 x 1320)
+    and the cosmic mosaic (10560²), at the reduction's one round and at
+    the default three.  The entry's times are one of each call at one
+    round, as a frame runs them."""
+    from blackbox_tpu_torch.core.geometry import MEERLICHT
+    from blackbox_tpu_torch.ops import morphology as M
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    masks = {"channel stack": saturation_stack(*MEERLICHT.chan_shape, gen),
+             "mosaic": cosmic_mosaic(*MEERLICHT.red_shape, gen)}
+    err, calls = 0.0, {}
+    for name, m in masks.items():
+        for rounds in (1, 3):
+            got = M.fill_holes(m, rounds)
+            want = M._fill_holes(m, rounds)
+            err = max(err, max_abs_err(got, want))
+            filled = int((want & ~m).sum())
+            del got, want
+            tk = cuda_ms(lambda: M.fill_holes(m, rounds), reps=20)
+            tpl = cuda_ms(lambda: M._fill_holes(m, rounds), reps=1)
+            # the bool mask read once and the result written once
+            b = bound(2.0 * m.numel())
+            calls[name, rounds] = (tk, tpl, b[0])
+            print(f"K8 fill_holes {name} {'x'.join(map(str, m.shape))} "
+                  f"{rounds} round{'s' if rounds > 1 else ''} ({filled} "
+                  f"pixels filled): bit-exact, kernel {tk:.4f} ms, plain "
+                  f"{tpl:.3f} ms, bound {b[0]:.4f} ms ({b[1]}) [{card}]")
+    one = [calls[name, 1] for name in masks]
+    return dict(entry("fill_holes", "blackbox_tpu_torch/csrc/fillholes.cu",
+                      "none (blackbox_tpu/ops/morphology.py:155, XLA)", err,
+                      sum(c[0] for c in one), sum(c[1] for c in one),
+                      sum(c[2] for c in one), "bytes"),
+                call_ms=[c[0] for c in one],
+                call_plain_ms=[c[1] for c in one],
+                call_bound_ms=[c[2] for c in one],
+                three_rounds_ms=[calls[name, 3][0] for name in masks])
+
 def k7_ops():
     """Float operations of csrc/lacosmic.cu: (dense per pixel and
     iteration, per pixel listed for the 7x7 median, per pixel listed for
@@ -1142,14 +1220,16 @@ def check_tiny(reduce_ctx_for, card):
 def counters():
     """The launch-counted wrappers, one per kernel, by JSON name."""
     from blackbox_tpu_torch.ops import detection, fft, filters, labeling
-    from blackbox_tpu_torch.ops import lacosmic_fused, upsample, windows
+    from blackbox_tpu_torch.ops import lacosmic_fused, morphology, upsample
+    from blackbox_tpu_torch.ops import windows
     return {"label_propagate": labeling.label_propagate,
             "median_filter": filters.median_filter,
             "gather_slot_windows": windows.gather_slot_windows,
             "fft_cols_split": fft.fft_cols_split,
             "fused_detect": detection.fused_detect,
             "lacosmic_fused": lacosmic_fused.lacosmic_fused,
-            "upsample_mesh": upsample.upsample_mesh}
+            "upsample_mesh": upsample.upsample_mesh,
+            "fill_holes": morphology.fill_holes}
 
 
 def zero_counts():
@@ -1802,7 +1882,8 @@ def night_phase(ctx, card, root):
     torch.cuda.synchronize()
     counts = read_counts("file -> file night", card,
                          ("label_propagate", "median_filter",
-                          "gather_slot_windows", "fft_cols_split"))
+                          "gather_slot_windows", "fft_cols_split",
+                          "fill_holes"))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check_night_flags(res, card)
     trans = [p for p in res[-1].products
@@ -2221,7 +2302,8 @@ def coadd_phase(card, night):
     torch.cuda.synchronize()
     counts = read_counts("co-add phase", card,
                          ("label_propagate", "median_filter",
-                          "gather_slot_windows", "fft_cols_split"))
+                          "gather_slot_windows", "fft_cols_split",
+                          "fill_holes"))
     if counts["fft_cols_split"] != 6:
         raise AssertionError(f"fft_cols_split: {counts['fft_cols_split']} "
                              "launches for 1 subtraction")
@@ -3422,10 +3504,15 @@ def main() -> int:
     frame, lac_input = reduce_phase(ctx, card, mbias, mflat, xtalk)
     c3 = read_counts("raw -> catalog", card, ("label_propagate",
                                               "median_filter",
-                                              "gather_slot_windows"))
+                                              "gather_slot_windows",
+                                              "fill_holes"))
     if c3["label_propagate"] != len(SEEDS):
         raise AssertionError(f"label_propagate: {c3['label_propagate']} "
                              f"launches for {len(SEEDS)} catalog frames")
+    # the saturation mask's and the cosmic mask's hole fills
+    if c3["fill_holes"] != 2 * len(SEEDS):
+        raise AssertionError(f"fill_holes: {c3['fill_holes']} launches "
+                             f"for {len(SEEDS)} frames")
     torch.cuda.empty_cache()
     k4 = next(r for r in results if r["name"] == "gather_slot_windows")
     k4.update(k4_path_replay(ctx, card, mbias, mflat, xtalk, prev))
@@ -3437,7 +3524,7 @@ def main() -> int:
     c4 = read_counts("raw -> transient catalog", card,
                      ("label_propagate", "median_filter",
                       "gather_slot_windows", "fft_cols_split",
-                      "fused_detect"))
+                      "fused_detect", "fill_holes"))
     # one K1 launch for the reference's catalog, then two a science
     # frame (the catalog's 32 steps, the transients' 48 in one launch),
     # none in the frame where BBTPU_PALLAS_DETECT=1 routes both to K5
@@ -3455,7 +3542,7 @@ def main() -> int:
     nk7, first = calib_phase(ctx, card, xtalk)
     c5 = read_counts("calibration night + K7 reduction + K3 planes", card,
                      ("label_propagate", "gather_slot_windows",
-                      "lacosmic_fused", "upsample_mesh"))
+                      "lacosmic_fused", "upsample_mesh", "fill_holes"))
     if c5["lacosmic_fused"] != 3 * nk7:
         raise AssertionError(f"lacosmic_fused: {c5['lacosmic_fused']} "
                              f"iterations for {nk7} frames")
@@ -3495,7 +3582,8 @@ def main() -> int:
         torch.cuda.synchronize()
         c9 = read_counts("networks and segment mode", card,
                          ("label_propagate", "median_filter",
-                          "gather_slot_windows", "fft_cols_split"))
+                          "gather_slot_windows", "fft_cols_split",
+                          "fill_holes"))
         if (c9["label_propagate"] != 2 + k1_visit
                 or c9["fft_cols_split"] != 6):
             raise AssertionError(
@@ -3518,7 +3606,8 @@ def main() -> int:
         del frame, tiny
         c10 = read_counts("multi-device on one card", card,
                           ("label_propagate", "median_filter",
-                           "gather_slot_windows", "fft_cols_split"))
+                           "gather_slot_windows", "fft_cols_split",
+                           "fill_holes"))
         print(f"phase 10: {time.time() - t10:.1f} s [{card}]")
 
         # phase 11: the windowed L.A.Cosmic rounds at full width against
@@ -3545,7 +3634,8 @@ def main() -> int:
         torch.cuda.synchronize()
         c12 = read_counts("driver knobs", card,
                           ("label_propagate", "median_filter",
-                           "gather_slot_windows", "fft_cols_split"))
+                           "gather_slot_windows", "fft_cols_split",
+                           "fill_holes"))
         print(f"phase 12: {time.time() - t12:.1f} s [{card}]")
 
     for r in results:

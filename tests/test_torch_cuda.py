@@ -1239,6 +1239,90 @@ def test_binary_morphology_on_card(dev, size):
         _same(fn(m.to(dev)).cpu(), fn(m))
 
 
+def _fill_holes_same(m, iterations):
+    """K8 on the card against the plain hole fill of the same mask on
+    the CPU, bit for bit; one launch."""
+    from blackbox_tpu_torch.ops import morphology as M
+    before = M.fill_holes.launches
+    got = M.fill_holes(m, iterations)
+    assert M.fill_holes.launches == before + 1
+    assert got.device == m.device
+    want = M._fill_holes(m.cpu(), iterations)
+    _same(got.cpu(), want)
+    return want
+
+
+def test_fill_holes_kernel_channel_stack(dev):
+    """The mask stage's call: 16 channels of 5280 x 1320 saturated stars
+    (cores, rings around a hole, bleed columns), closed as
+    satcon_close_fill closes them."""
+    from blackbox_tpu_torch.ops import morphology as M
+    g = torch.Generator(device=dev).manual_seed(16)
+    stars = torch.rand((16, 5280, 1320), generator=g, device=dev) < 3e-5
+    rings = torch.rand((16, 5280, 1320), generator=g, device=dev) < 1e-5
+    sat = M.binary_dilation(stars, size=9)
+    sat |= (M.binary_dilation(rings, size=17)
+            & ~M.binary_dilation(rings, size=11))
+    bleed = stars & (torch.rand(stars.shape, generator=g, device=dev) < 0.3)
+    sat |= torch.nn.functional.max_pool2d(
+        bleed.view(16, 1, 5280, 1320).float(), (61, 3), stride=1,
+        padding=(30, 1)).view(16, 5280, 1320) > 0.5
+    closed = M._erode3(M._dilate3(M._dilate3(sat)))
+    want = _fill_holes_same(closed, 1)
+    assert bool((want & ~closed.cpu()).any())       # holes were filled
+
+
+@pytest.mark.parametrize("iterations", [1, 3])
+def test_fill_holes_kernel_mosaic(dev, iterations):
+    """The cosmic-mask call: a 10560^2 mosaic of small hits, some of
+    them rings around one pixel."""
+    from blackbox_tpu_torch.ops import morphology as M
+    g = torch.Generator(device=dev).manual_seed(10560 + iterations)
+    hits = torch.rand((10560, 10560), generator=g, device=dev) < 8e-6
+    rings = torch.rand((10560, 10560), generator=g, device=dev) < 2e-6
+    m = M.binary_dilation(hits) | (M.binary_dilation(rings) & ~rings)
+    want = _fill_holes_same(m, iterations)
+    assert bool((want & ~m.cpu()).any())
+
+
+FILL_SHAPES = [(70, 1), (70, 31), (70, 32), (70, 33), (300, 1320),
+               (1, 1320), (2, 1320), (1, 1), (2, 2), (1, 33), (2, 31),
+               (3, 5, 40, 33), (4, 2, 1, 64), (2, 3, 2, 1320)]
+
+
+@pytest.mark.parametrize("iterations", [1, 3])
+@pytest.mark.parametrize("shape", FILL_SHAPES)
+def test_fill_holes_kernel_odd_shapes(dev, shape, iterations):
+    g = torch.Generator().manual_seed(sum(shape) + iterations)
+    for frac in (0.3, 0.55):
+        m = torch.rand(shape, generator=g) < frac
+        _fill_holes_same(m.to(dev), iterations)
+
+
+def test_fill_holes_kernel_non_contiguous(dev):
+    g = torch.Generator().manual_seed(5)
+    base = (torch.rand((2, 1320, 301), generator=g) < 0.5).to(dev)
+    for m in (base.transpose(-1, -2), base[:, ::3, 1:]):
+        assert not m.is_contiguous()
+        _fill_holes_same(m, 2)
+
+
+@pytest.mark.parametrize("iterations", [1, 2, 3])
+@pytest.mark.parametrize("where", ["alone", "in_frame"])
+def test_fill_holes_kernel_spiral(dev, iterations, where):
+    """Each round reaches one more ring of the spiral, so a kernel that
+    flooded to completion fails."""
+    from test_torch_fillholes import spiral
+    from blackbox_tpu_torch.ops import morphology as M
+    if where == "alone":
+        m = torch.from_numpy(spiral(40))
+    else:
+        m = torch.zeros((257, 1320), dtype=torch.bool)
+        m[20:220, 1000:1200] = torch.from_numpy(spiral(200))
+    want = _fill_holes_same(m.to(dev), iterations)
+    assert not torch.equal(want, M._fill_holes(m, iterations + 1))
+
+
 @pytest.mark.parametrize("net", ["trailnet", "vetnet"])
 def test_weight_file_round_trip_from_card(dev, net, tmp_path):
     """Parameters on the card written by save_params (flax msgpack) and
