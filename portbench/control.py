@@ -4,16 +4,17 @@ the cell's own size.
 
     python3 portbench/control.py --workload <cell> --seeds <n> [<n> ...]
 
-The control is the reference in the program's place with its
-overscan-corrected frames held in bfloat16 (``package.bfloat16_frame``);
-the witness, a sound change that is not bit-exact, the same frames moved
-by a unit in the last place of float32 (``package.ulp_frame``).  For
-each seed: the cell's inputs, one pool frame drawn from the seed, the
-reference's outputs, the control's and the witness's, and every
-compared number beside the cell's limit (one JSON line a seed on
-standard output).  The limits lie above the program's and the
-witness's readings and below the control's (PERF.md).  Not part of a
-benchmark run.
+The control is the reference in the program's place with the entry's
+own float32 stage held in bfloat16, and the witness, a sound change
+that is not bit-exact, the same stage moved by a unit in the last place
+of float32: the entry module's ``control`` and ``witness`` (for the
+entries on raw frames, ``package.bfloat16_frame`` and
+``package.ulp_frame`` on the overscan-corrected frames).  For each seed:
+the cell's inputs, one pool item drawn from the seed, the reference's
+outputs, the control's and the witness's, and every compared number
+beside the cell's limit (one JSON line a seed on standard output).  The
+limits lie above the program's and the witness's readings and below the
+control's (PERF.md).  Not part of a benchmark run.
 """
 
 import time
@@ -27,11 +28,10 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path[0] = str(ROOT)
 
 
 def readings(cell, seed: int, device) -> dict:
-    """The control's and the witness's numbers on one frame of
+    """The control's and the witness's numbers on one item of
     ``seed``'s pool."""
     import torch
 
@@ -49,8 +49,8 @@ def readings(cell, seed: int, device) -> dict:
 
     want = outputs()
     out = {}
-    for name, change in (("control", package.bfloat16_frame),
-                         ("witness", package.ulp_frame)):
+    for name, change in (("control", cell.entry.control),
+                         ("witness", cell.entry.witness)):
         with change(ref):
             got = outputs()
         out[name] = numbers(got, want)
@@ -88,4 +88,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    sys.path[0] = str(ROOT)
     sys.exit(main())

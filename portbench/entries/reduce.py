@@ -4,12 +4,32 @@ calibrated mosaic, mask and PSF catalog.
 Its traffic file gives ``field`` (``stars``, ``saturated``, ``flux_e``,
 ``saturated_flux_e``, ``new_field_each_frame``), ``cosmics`` and
 ``trail``.
+
+What the benchmark's tests need of it: :func:`tiny`, ``control`` and
+``witness`` (the overscan-corrected stacks in bfloat16, and moved by a
+unit in the last place), ``FAULTS`` and ``PROGRAM_VALUES``.
 """
 
 from __future__ import annotations
 
-from portbench import frames
+from portbench import faults, frames, package
 from portbench.package import Inputs, Package
+
+control = package.bfloat16_frame
+witness = package.ulp_frame
+FAULTS = (faults.stale, faults.half, faults.altered_flux,
+          faults.altered_pixel)
+# the values program_trace.py reads from a recording of this entry
+PROGRAM_VALUES = frozenset({
+    "calibration.device_ms", "lacosmic.device_ms", "catalog.device_ms",
+    "mask.device_ms", "fill_holes.device_ms", "lacosmic.active_cells",
+    "lacosmic.window_yield_pct", "host.reads_per_frame"})
+
+
+def tiny(config: dict, traffic: dict) -> tuple:
+    """The cell cut to the port's TINY geometry for the CPU tests."""
+    from portbench import tiny as cut
+    return cut.raw_frame_cut(config, traffic)
 
 
 def inputs(config: dict, traffic: dict, seed: int, device,

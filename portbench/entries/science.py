@@ -7,6 +7,11 @@ Its traffic file gives what ``reduce``'s does, and ``transients``
 (``count``, ``flux_e``, ``edge_px``: new sources in each visit) and
 ``reference`` (``depth``, the registration's ``rotation_deg`` and
 ``offset_px``, ``remap_step``, ``remap_strips``).
+
+What the benchmark's tests need of it: :func:`tiny`, ``control`` and
+``witness`` (``reduce``'s), ``FAULTS`` (``reduce``'s and a transient's
+flux altered) and ``PROGRAM_VALUES`` (``reduce``'s and the science
+back's).
 """
 
 from __future__ import annotations
@@ -15,8 +20,28 @@ import dataclasses
 
 import torch
 
-from portbench import frames
+from portbench import faults, frames, package
 from portbench.package import Inputs, Package
+
+control = package.bfloat16_frame
+witness = package.ulp_frame
+FAULTS = (faults.stale, faults.half, faults.altered_flux,
+          faults.altered_pixel, faults.altered_transient)
+# the values program_trace.py reads from a recording of this entry
+PROGRAM_VALUES = frozenset({
+    "calibration.device_ms", "lacosmic.device_ms", "catalog.device_ms",
+    "mask.device_ms", "fill_holes.device_ms", "lacosmic.active_cells",
+    "lacosmic.window_yield_pct", "host.reads_per_frame",
+    "warp.device_ms", "zogy.device_ms", "zogy.fft.device_ms"})
+
+
+def tiny(config: dict, traffic: dict) -> tuple:
+    """The cell cut to the port's TINY geometry for the CPU tests, with
+    3 transients a visit."""
+    from portbench import tiny as cut
+    config, traffic = cut.raw_frame_cut(config, traffic)
+    traffic["transients"]["count"] = 3
+    return config, traffic
 
 
 @dataclasses.dataclass

@@ -7,13 +7,17 @@ functions, so an entry (``portbench/entries/<entry>.py``) is built from
 a :class:`Package` of either.
 
 Two changes of a side, each a context manager over a :class:`Package`,
-stand beside them:
+stand beside them.  The rule: the control holds the entry's own float32
+stage one step lower, in bfloat16, and the witness, a sound change that
+is not bit-exact, moves the same stage by one float32 unit in the last
+place, as a reordered sum or a fused pass would move it.  Every entry
+module declares its own as ``control(pkg)`` and ``witness(pkg)``; the
+stage of the entries on raw frames is the overscan-corrected channel
+stacks, and theirs are these two:
 
-- :func:`bfloat16_frame`, the control: the overscan-corrected channel
-  stacks held in bfloat16, the step below the configuration's float32.
-- :func:`ulp_frame`, a sound witness that is not bit-exact: the same
-  stacks moved by one or two float32 units in the last place, as a
-  reordered sum or a fused pass would move them.
+- :func:`bfloat16_frame`, the control: those stacks held in bfloat16.
+- :func:`ulp_frame`, the witness: those stacks moved by one or two
+  float32 units in the last place.
 """
 
 from __future__ import annotations
@@ -33,16 +37,20 @@ class Package:
     """The modules of one side, by the port's layout."""
 
     def __init__(self, root: str):
-        def mod(name):
-            return importlib.import_module(f"{root}.{name}")
         self.root = root
-        self.geometry = mod("core.geometry")
-        self.reduce = mod("pipeline.reduce")
-        self.subtract = mod("pipeline.subtract")
-        self.cosmics = mod("ops.cosmics")
-        self.detection = mod("ops.detection")
-        self.warp = mod("ops.warp")
-        self.stats = mod("ops.stats")
+        self.geometry = self.module("core.geometry")
+        self.reduce = self.module("pipeline.reduce")
+        self.subtract = self.module("pipeline.subtract")
+        self.cosmics = self.module("ops.cosmics")
+        self.detection = self.module("ops.detection")
+        self.warp = self.module("ops.warp")
+        self.stats = self.module("ops.stats")
+
+    def module(self, name: str):
+        """The side's module ``name`` by its path inside the package,
+        such as ``pipeline.masters``: an entry reaches any module of
+        either side this way."""
+        return importlib.import_module(f"{self.root}.{name}")
 
     def geom(self, config):
         return getattr(self.geometry, config["geometry"])
@@ -61,11 +69,12 @@ class Package:
 @dataclasses.dataclass
 class Inputs:
     """What the benchmark makes from the seed and hands to both sides;
-    an entry may add fields of its own."""
-    pool: list                  # [(chan, os_vert, os_hori)] raw frames
-    mbias: torch.Tensor
-    mflat: torch.Tensor
-    xtalk: np.ndarray
+    an entry may add fields of its own.  An entry on raw frames fills
+    all four; another leaves the masters and crosstalk out."""
+    pool: list                  # one entry call's input each: raw frames
+    mbias: torch.Tensor | None = None
+    mflat: torch.Tensor | None = None
+    xtalk: np.ndarray | None = None
 
 
 @contextlib.contextmanager
@@ -96,3 +105,4 @@ def ulp_frame(pkg: Package):
     """The witness: ``pkg`` with every overscan-corrected value times
     (1 + 2**-23) in float32, one or two units in the last place."""
     return _overscan_corrected(pkg, lambda chan: chan * (1.0 + 2.0 ** -23))
+

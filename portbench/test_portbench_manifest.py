@@ -10,7 +10,7 @@ import time
 
 import pytest
 
-from portbench import harness, manifest, tiny
+from portbench import checks, harness, manifest, tiny
 
 BENCH = manifest.benchmark()
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
@@ -75,23 +75,16 @@ def test_moves_names_a_metric_its_cells_report(metric):
 @pytest.mark.parametrize("workload", BENCH["workloads"],
                          ids=lambda w: w["name"])
 def test_cell_files_found_by_name(workload):
-    cell = manifest.cell(workload["name"])
-    assert callable(cell.entry.inputs) and callable(cell.entry.Entry)
-    assert cell.config["name"] == workload["config"]
-    assert workload["chips"] == 1
-    assert 1 <= len(workload["why"]) <= 200
-    e2e = {m["name"] for m, _ in cell.end_to_end}
-    assert "setup_s" in e2e and len(e2e) >= 2
-    assert cell.per_layer
-    for _, reader in cell.end_to_end + cell.per_layer:
-        assert callable(reader.read)
+    checks.cell_files(manifest.cell(workload["name"]))
 
 
 @pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_files(config):
     assert config["file"].startswith("portbench/configs/")
     data = json.loads((manifest.ROOT / config["file"]).read_text())
-    assert config["reduced"] == data["reduced"] == []
+    assert config["reduced"] == data["reduced"]
+    assert all(isinstance(k, str) and 1 <= len(k) <= 200
+               for k in config["reduced"])
     assert len(data["gains"]) == len(data["satlevel_adu"]) == 16
     assert data["precision"] == "float32"
     assert any(w["config"] == config["name"] for w in BENCH["workloads"])
@@ -108,13 +101,19 @@ def test_paths_hold_only_names(tmp_path):
         assert re.fullmatch(r"[A-Za-z0-9_./-]{1,200}", rel), rel
 
 
-def test_cell_added_by_files_alone(tmp_path):
-    """A new cell needs only a BENCHMARK.json entry and new files."""
+def _copy(tmp_path):
+    """Copy BENCHMARK.json and portbench/ into ``tmp_path``; return the
+    copy's ``portbench/`` and BENCHMARK.json's contents."""
     shutil.copy(manifest.ROOT / "BENCHMARK.json", tmp_path)
     base = tmp_path / "portbench"
     shutil.copytree(manifest.HERE, base,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    return base, json.loads((tmp_path / "BENCHMARK.json").read_text())
+
+
+def test_cell_added_by_files_alone(tmp_path):
+    """A new cell needs only a BENCHMARK.json entry and new files."""
+    base, bench = _copy(tmp_path)
     bench["workloads"].append({"name": "ml1.cosmic-heavy", "config": "ml1",
                                "traffic": "cosmic-heavy", "chips": 1,
                                "why": "4000 cosmics a frame"})
@@ -137,11 +136,7 @@ def test_entry_and_metric_added_by_files_alone(tmp_path):
     """A cell whose traffic drives a new entry, and reports a new
     end-to-end metric, needs only new files and BENCHMARK.json
     entries: the harness runs it."""
-    shutil.copy(manifest.ROOT / "BENCHMARK.json", tmp_path)
-    base = tmp_path / "portbench"
-    shutil.copytree(manifest.HERE, base,
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    base, bench = _copy(tmp_path)
     bench["workloads"].append({"name": "ml1.catalog", "config": "ml1",
                                "traffic": "catalog", "chips": 1,
                                "why": "a light field, raw to catalog"})
@@ -170,3 +165,39 @@ def test_entry_and_metric_added_by_files_alone(tmp_path):
     assert r["correct"] is True
     assert set(r["metrics"]) == {"frames_per_s", "frame_ms_p90", "setup_s",
                                  "frame_ms_max"}
+
+
+def test_entry_of_another_kind_added_by_files_alone(tmp_path):
+    """A cell whose entry is not a frame reduction, added by new files
+    and BENCHMARK.json entries alone (``rehearsal/``: the median of a
+    stack of channel stacks, with its own tiny cut, control, witness,
+    faults and program values), passes every per-cell check."""
+    base, bench = _copy(tmp_path)
+    rehearsal = manifest.HERE / "rehearsal"
+    for src in sorted(rehearsal.rglob("*")):
+        rel = src.relative_to(rehearsal)
+        if src.is_file() and "__pycache__" not in rel.parts \
+                and rel.name != "benchmark.json":
+            assert not (base / rel).exists(), rel       # new files only
+            shutil.copy(src, base / rel)
+    extra = json.loads((rehearsal / "benchmark.json").read_text())
+    for key, entries in extra.items():
+        bench[key] += entries
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    name = extra["workloads"][0]["name"]
+
+    full = manifest.cell(name, root=tmp_path, base=base)
+    checks.declarations(full)
+    checks.cell_files(full)
+    cell = tiny.cell(name, root=tmp_path, base=base)
+    assert cell.entry.__file__ == str(base / "entries" / "stack-median.py")
+    checks.result_line(cell, trace=False)
+    checks.result_line(cell, trace=True)
+    checks.control_not_correct(cell)
+    checks.witness_correct(cell)
+    checks.control_readings(cell)
+    for fault in cell.entry.FAULTS:
+        checks.fault_not_correct(cell, fault)
+    checks.pool_follows_the_seed(cell)
+    checks.inputs_unchanged(cell, "cpu")
+    checks.phases(cell)

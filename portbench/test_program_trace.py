@@ -1,5 +1,5 @@
 """``program_trace.py``'s readers on made-up spans and traces, and its
-phases on both cells at the port's TINY geometry on the CPU.
+phases on every cell at the port's TINY geometry on the CPU.
 
     python -m pytest portbench -q
 """
@@ -8,7 +8,7 @@ import types
 
 import pytest
 
-from portbench import manifest, program_trace, spans, tiny
+from portbench import checks, manifest, program_trace, spans, tiny
 
 CELLS = [w["name"] for w in manifest.benchmark()["workloads"]]
 
@@ -95,21 +95,4 @@ def test_read_trace_keeps_its_result_with_program_spans():
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_phases_on_tiny(workload):
-    """A rehearsal: every value but the device trace's idle times (the
-    CPU has no device activity), the twins, and outputs bit-identical
-    with recording on and off."""
-    r = program_trace.run(workload, 2 ** 31 + 17, 2, device="cpu",
-                          cell=tiny.cell(workload), pool=3, warmup=1,
-                          onoff=0.01)
-    want = {"calibration.device_ms", "lacosmic.device_ms",
-            "catalog.device_ms", "mask.device_ms", "fill_holes.device_ms",
-            "lacosmic.active_cells", "lacosmic.window_yield_pct",
-            "host.reads_per_frame"}
-    if workload == "ml1.transient":
-        want |= {"warp.device_ms", "zogy.device_ms", "zogy.fft.device_ms"}
-    assert set(r["values"]) == want
-    assert all(v > 0 for v in r["values"].values())
-    assert set(r["twins_pct"]) == {m for m in program_trace.TWINS
-                                   if m in want}
-    assert r["bit_identical"] is True
-    assert [side for side, _, _ in r["onoff"]] == ["off", "on", "on", "off"]
+    checks.phases(tiny.cell(workload))

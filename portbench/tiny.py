@@ -1,8 +1,8 @@
 """A cell of ``BENCHMARK.json`` cut to the port's ``TINY`` geometry, for
 the benchmark's own CPU tests: the same configuration, traffic mix,
-entry, limits and metrics, with a frame of 132 x 320 pixels, tens of
-stars and a few cosmics and transients, and the harness's counts in
-:data:`RUN`.  Never used by a benchmark run."""
+entry, limits and metrics, cut by the entry's own ``tiny(config,
+traffic)``, and the harness's counts in :data:`RUN`.  Never used by a
+benchmark run."""
 
 from __future__ import annotations
 
@@ -15,13 +15,16 @@ RUN = {"pool": 3, "warmup": 1, "profiled": 1, "checked": 1}
 
 def cell(workload: str, **base) -> manifest.Cell:
     c = manifest.cell(workload, **base)
-    c.config = copy.deepcopy(c.config)
-    c.config["geometry"] = "TINY"
-    c.config["detect"]["max_sources"] = 256
-    t = copy.deepcopy(c.traffic)
-    t["cosmics"] = 6
-    t["field"].update(stars=40, saturated=1)
-    if "transients" in t:
-        t["transients"]["count"] = 3
-    c.traffic = t
+    c.config, c.traffic = c.entry.tiny(copy.deepcopy(c.config),
+                                       copy.deepcopy(c.traffic))
     return c
+
+
+def raw_frame_cut(config: dict, traffic: dict) -> tuple:
+    """The cut of an entry on raw frames: 132 x 320 pixels, at most 256
+    sources, 6 cosmics, 40 stars and 1 saturated."""
+    config["geometry"] = "TINY"
+    config["detect"]["max_sources"] = 256
+    traffic["cosmics"] = 6
+    traffic["field"].update(stars=40, saturated=1)
+    return config, traffic
