@@ -256,15 +256,14 @@ class MasterStore:
     def _build(self, imgtype: str, files: list, filt, tel, geom, norm_sec):
         import torch
         from blackbox_tpu_torch.pipeline import masters as M
+        from blackbox_tpu_torch.utils.timing import count
 
-        stack, headers = [], []
+        frames, headers = [], []
         for f, h0 in files:
             img, _ = read_rice(f)
-            stack.append(geom.disassemble(torch.as_tensor(
+            frames.append(geom.disassemble(torch.as_tensor(
                 np.asarray(img, np.float32), device=self.device)))
             headers.append(h0)
-        cube = torch.stack(stack)                  # (N, C, ych, xch)
-        del stack
 
         h = Header()
         h["IMAGETYP"] = (f"m{imgtype}", "master frame type")
@@ -274,28 +273,28 @@ class MasterStore:
         if filt is not None:
             h["FILTER"] = (str(filt), "filter")
 
-        if imgtype == "flat":
-            if norm_sec is None:
-                H, W = geom.red_shape
-                norm_sec = (slice(H // 2 - H // 8, H // 2 + H // 8),
-                            slice(W // 2 - W // 8, W // 2 + W // 8))
-            master, stats = M.master_flat(cube, geom, norm_sec)
-            self._stamp_dither(h, headers)
-        elif imgtype == "dark":
+        exptimes = None
+        if imgtype == "dark":
             # exposure-time-normalised dark current [e-/s]
             # (reference master dark, blackbox.py:1720-1743)
             exptimes = torch.tensor(
                 [max(float(h0.get("EXPTIME", 1.0) or 1.0), 1e-6)
                  for h0 in headers], dtype=torch.float32,
                 device=self.device)
-            master, stats = M.master_dark(cube, exptimes)
-        else:                                      # bias
-            master, stats = M.master_bias(cube)
+        # the frames list is emptied once stacked (build_master)
+        master, stats = M.build_master(imgtype, frames, geom, norm_sec,
+                                       exptimes)
+        if imgtype == "flat":
+            self._stamp_dither(h, headers)
         from blackbox_tpu_torch.pipeline.headers import stamp_master
+        # stamp_master reads every statistic but the frame count, which
+        # is made on the host
+        count("host.reads", len(stats) - 1)
         stamp_master(h, imgtype, {k: v.cpu().numpy()
                                   for k, v in stats.items()})
         from blackbox_tpu_torch.qc.engine import run_qc_check
         run_qc_check(h, tel, check_key_type=f"m{imgtype}")
+        count("host.reads")
         return geom.assemble(master).cpu().numpy(), h
 
     @staticmethod

@@ -47,6 +47,7 @@ from blackbox_tpu_torch.pipeline.reduce import (ReduceContext,  # noqa: E402
 H, W = TINY.red_shape
 NORM_SEC = (slice(H // 2 - H // 8, H // 2 + H // 8),
             slice(W // 2 - W // 8, W // 2 + W // 8))
+NAN_AT = (0, 30, 20)        # (channel, y, x) of the stacks' one NaN pixel
 
 
 def _nonlin_coeffs():
@@ -108,54 +109,67 @@ def test_nonlin_correct_matches_jax():
     assert_exact(n(got)[above], chan[above])
 
 
-def _stack(seed, N, kind):
+def _stack(seed, N, kind, nan=False):
     """N calibrated TINY channel stacks: bias-like (0 e- +- 10) or
-    flat-like (2e4 e- times a vignetted, channel-gain-stepped flat)."""
+    flat-like (2e4 e- times a vignetted, channel-gain-stepped flat);
+    with ``nan``, one NaN pixel in the first, where the flat's section,
+    strips and chain do not reach."""
     rng = np.random.default_rng(seed)
     C, ych, xch = TINY.chan_shape
     if kind == "bias":
-        return rng.normal(0.0, 10.0, (N, C, ych, xch)).astype(np.float32)
-    yy, xx = np.mgrid[:H, :W]
-    vign = 1.0 - 0.06 * (((yy - H / 2) / (H / 2)) ** 2
-                         + ((xx - W / 2) / (W / 2)) ** 2)
-    flat = np.stack([np.asarray(TINY.disassemble(t(vign.astype(np.float32))))
-                     ] * N)
-    flat *= (1.0 + 0.01 * np.arange(C))[None, :, None, None]
-    level = 2e4 * (1.0 + 0.05 * np.arange(N))[:, None, None, None]
-    return (flat * level + rng.normal(0.0, 140.0, flat.shape)).astype(
-        np.float32)
+        out = rng.normal(0.0, 10.0, (N, C, ych, xch)).astype(np.float32)
+    else:
+        yy, xx = np.mgrid[:H, :W]
+        vign = 1.0 - 0.06 * (((yy - H / 2) / (H / 2)) ** 2
+                             + ((xx - W / 2) / (W / 2)) ** 2)
+        flat = np.stack([np.asarray(TINY.disassemble(
+            t(vign.astype(np.float32))))] * N)
+        flat *= (1.0 + 0.01 * np.arange(C))[None, :, None, None]
+        level = 2e4 * (1.0 + 0.05 * np.arange(N))[:, None, None, None]
+        out = (flat * level + rng.normal(0.0, 140.0, flat.shape)).astype(
+            np.float32)
+    if nan:
+        out[(0, *NAN_AT)] = np.nan
+    return out
 
 
-@pytest.mark.parametrize("N", [3, 4])
+# odd and even depths, up to the nightly masters' (bias 20, flat 15)
+@pytest.mark.parametrize("N", [3, 4, 15, 20])
 def test_master_bias_and_dark_match_jax(N):
-    stack = _stack(N, N, "bias")
-    mj, sj = jmasters.master_bias(jnp.asarray(stack))
-    mt, st = masters.master_bias(t(stack))
-    assert_exact(mt, mj)
-    for k in sj:
-        assert_close(st[k], sj[k], rtol=1e-5, atol=1e-6, what=k)
-    exptimes = np.linspace(30.0, 60.0, N).astype(np.float32)
-    mj, sj = jmasters.master_dark(jnp.asarray(stack), jnp.asarray(exptimes))
-    mt, st = masters.master_dark(t(stack), t(exptimes))
-    assert_exact(mt, mj)
-    for k in sj:
-        assert_close(st[k], sj[k], rtol=1e-5, atol=1e-6, what=k)
+    for nan in (False, True):
+        stack = _stack(N, N, "bias", nan)
+        mj, sj = jmasters.master_bias(jnp.asarray(stack))
+        mt, st = masters.master_bias(t(stack))
+        assert_exact(mt, mj)
+        assert np.isnan(n(mt)[NAN_AT]) == nan
+        for k in sj:
+            assert_close(st[k], sj[k], rtol=1e-5, atol=1e-6, what=k)
+        exptimes = np.linspace(30.0, 60.0, N).astype(np.float32)
+        mj, sj = jmasters.master_dark(jnp.asarray(stack),
+                                      jnp.asarray(exptimes))
+        mt, st = masters.master_dark(t(stack), t(exptimes))
+        assert_exact(mt, mj)
+        assert np.isnan(n(mt)[NAN_AT]) == nan
+        for k in sj:
+            assert_close(st[k], sj[k], rtol=1e-5, atol=1e-6, what=k)
 
 
-@pytest.mark.parametrize("N", [3, 4])
+@pytest.mark.parametrize("N", [3, 4, 15, 20])
 def test_master_flat_matches_jax(N):
-    stack = _stack(10 + N, N, "flat")
     bpm = np.zeros(TINY.chan_shape, np.uint8)
     bpm[:, :2, :] = 32                               # maskbits.EDGE
-    mj, sj = jmasters.master_flat(jnp.asarray(stack), JTINY, NORM_SEC,
-                                  bpm=jnp.asarray(bpm))
-    mt, st = masters.master_flat(t(stack), TINY, NORM_SEC, bpm=t(bpm))
-    assert_exact(mt, mj)
-    assert_exact(st["medsec"], sj["medsec"])
-    assert int(st["nmflat"]) == int(sj["nmflat"]) == N
-    for k in ("gaincf", "mflat_med"):
-        assert_close(st[k], sj[k], rtol=1e-5, what=k)
-    assert abs(float(st["gaincf"].mean()) - 1.0) < 1e-5
+    for nan in (False, True):
+        stack = _stack(10 + N, N, "flat", nan)
+        mj, sj = jmasters.master_flat(jnp.asarray(stack), JTINY, NORM_SEC,
+                                      bpm=jnp.asarray(bpm))
+        mt, st = masters.master_flat(t(stack), TINY, NORM_SEC, bpm=t(bpm))
+        assert_exact(mt, mj)
+        assert np.isnan(n(mt)[NAN_AT]) == nan
+        assert_exact(st["medsec"], sj["medsec"])
+        assert int(st["nmflat"]) == int(sj["nmflat"]) == N
+        for k in ("gaincf", "mflat_med"):
+            assert_close(st[k], sj[k], rtol=1e-5, what=k)
+        assert abs(float(st["gaincf"].mean()) - 1.0) < 1e-5
 
 
 def test_flat_statistics_match_jax():
