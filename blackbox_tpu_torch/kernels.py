@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("labelprop.cu", "medians.cu", "gather.cu", "fft.cu", "detect.cu",
-           "lacosmic.cu", "upsample.cu", "fillholes.cu")
+           "lacosmic.cu", "upsample.cu", "fillholes.cu", "stackmedian.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -61,6 +61,8 @@ _SIGNATURES = {
     "bbt_upsample_mesh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (mask, out, scratch, planes, H, W, iterations, stream)
     "bbt_fill_holes": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # (in, out, N, M, stream)
+    "bbt_stack_median": (_P, _P, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

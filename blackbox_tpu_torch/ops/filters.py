@@ -330,6 +330,17 @@ def tile_median_ops(k: int, th: int, tw: int) -> tuple:
     return _prune_program(b.head + b.ops, outs), outs, b.nw
 
 
+def _op_line(kind, a, b) -> str:
+    """One op of a comparator program as a line of CUDA on ``v``."""
+    if kind == "ce":
+        return f"    bbt_ce(v[{a}], v[{b}]);"
+    if kind == "min":
+        return f"    v[{a}] = bbt_min(v[{a}], v[{b}]);"
+    if kind == "max":
+        return f"    v[{b}] = bbt_max(v[{a}], v[{b}]);"
+    return f"    v[{b}] = v[{a}];"
+
+
 def median_network_source() -> str:
     """Text of ``csrc/median_networks.cuh``: the NaN-propagating
     min/max, the k x k median networks of :func:`sc_select_ops` (K7's
@@ -371,21 +382,12 @@ def median_network_source() -> str:
         "template <int K> struct MedianTile;",
     ]
 
-    def op_line(kind, a, b):
-        if kind == "ce":
-            return f"    bbt_ce(v[{a}], v[{b}]);"
-        if kind == "min":
-            return f"    v[{a}] = bbt_min(v[{a}], v[{b}]);"
-        if kind == "max":
-            return f"    v[{b}] = bbt_max(v[{a}], v[{b}]);"
-        return f"    v[{b}] = v[{a}];"
-
     for k in MEDIAN_KS:
         ops, wires = sc_select_ops(k, (k * k // 2,))
         out += ["", f"template <> struct MedianNet<{k}> {{",
                 "  static __device__ __forceinline__ float select("
                 f"float (&v)[{k * k}]) {{"]
-        out += [op_line(*op) for op in ops]
+        out += [_op_line(*op) for op in ops]
         out += [f"    return v[{wires[0]}];", "  }", "};"]
     for k in MEDIAN_KS:
         ops, outs, nw = tile_median_ops(k, th, tw)
@@ -402,7 +404,7 @@ def median_network_source() -> str:
                 if w in pixel:
                     y, x = pixel.pop(w)
                     body.append(f"    v[{w}] = ld({y}, {x});")
-            body.append(op_line(kind, a, b))
+            body.append(_op_line(kind, a, b))
         out += ["", f"template <> struct MedianTile<{k}> {{",
                 f"  static constexpr int TH = {th}, TW = {tw};",
                 f"  // {comparator_cost(ops)} min/max for {th * tw} "
@@ -414,6 +416,75 @@ def median_network_source() -> str:
         out += body
         out += [f"    o[{i}] = v[{w}];" for i, w in enumerate(outs)]
         out += ["  }", "};"]
+    return "\n".join(out) + "\n"
+
+
+# ---- stack-median networks of the CUDA kernel K9 -----------------------
+#
+# The kernel (csrc/stackmedian.cu) gives each thread a column of an
+# (N, M) stack and selects ranks (N-1)//2 and N//2 of its N values, the
+# two that jnp.median averages.  The network merges the values pairwise
+# up a balanced tree (Batcher's odd-even merge) and after every merge
+# forgets the ranks that can be neither, as the tile programs do
+# (_TileProgram.forget, here for two target ranks); it is then pruned to
+# the comparators that feed the two wires.
+
+STACK_MEDIAN_MAX = 32     # longest stack the kernel is built for
+
+
+@lru_cache(maxsize=None)
+def stack_median_ops(n: int) -> tuple:
+    """Comparator program that leaves ranks (n-1)//2 and n//2 of n
+    values on two wires.  Returns (ops, (lo_wire, hi_wire)); for odd n
+    the two are one wire."""
+    # values still in play, and the two target ranks among them
+    state = {"left": n, "lo": (n - 1) // 2, "hi": n // 2}
+
+    def forget(wires):
+        # rank r of a sorted subset of s of them has a rank in
+        # [r, r + left - s] among all of them
+        s, left = len(wires), state["left"]
+        a = max(0, state["lo"] - (left - s))
+        b = min(s - 1, state["hi"])
+        state["lo"] -= a
+        state["hi"] -= a
+        state["left"] -= a + s - 1 - b
+        return wires[a:b + 1]
+
+    pairs: list = []
+    cur = [[w] for w in range(n)]
+    while len(cur) > 1:
+        nxt = [forget(_oe_merge_pairs(cur[i], cur[i + 1], pairs))
+               for i in range(0, len(cur) - 1, 2)]
+        cur = nxt + cur[len(nxt) * 2:]
+    wires = (cur[0][0], cur[0][-1])
+    return prune_pairs(pairs, wires), wires
+
+
+def stack_median_source() -> str:
+    """Text of ``csrc/stack_median_networks.cuh``: the networks of
+    :func:`stack_median_ops` as CUDA, for N = 1 .. STACK_MEDIAN_MAX."""
+    out = [
+        "// Generated by blackbox_tpu_torch.ops.filters."
+        "stack_median_source();",
+        "// tests/test_torch_stackmedian.py holds this file equal to it.",
+        "// StackMedian<N>::select(v, lo, hi) runs the pruned network of",
+        "// stack_median_ops(N) on the N values of a column, in place, and",
+        "// returns its ranks (N-1)/2 and N/2.",
+        "#pragma once",
+        "",
+        '#include "median_networks.cuh"',
+        "",
+        "template <int N> struct StackMedian;",
+    ]
+    for n in range(1, STACK_MEDIAN_MAX + 1):
+        ops, (lo, hi) = stack_median_ops(n)
+        out += ["", f"template <> struct StackMedian<{n}> {{",
+                f"  // {comparator_cost(ops)} min/max",
+                "  static __device__ __forceinline__ void select("
+                f"float (&v)[{n}], float& lo, float& hi) {{"]
+        out += [_op_line(*op) for op in ops]
+        out += [f"    lo = v[{lo}];", f"    hi = v[{hi}];", "  }", "};"]
     return "\n".join(out) + "\n"
 
 

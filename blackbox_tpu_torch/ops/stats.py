@@ -3,12 +3,18 @@
 Clipping runs a fixed number of iterations, like the JAX package
 (iterations past the fixed point are no-ops).  Every function takes an
 optional boolean ``mask`` (True = excluded) and maps empty selections
-to NaN.
+to NaN.  :func:`median` of a short stack on the card runs the CUDA
+kernel K9 (``csrc/stackmedian.cu``); every other median sorts.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from blackbox_tpu_torch import kernels
+from blackbox_tpu_torch.ops.filters import STACK_MEDIAN_MAX
 
 _NAN = float("nan")
 
@@ -22,7 +28,25 @@ def _sum(x: torch.Tensor, axis):
 
 
 def median(x: torch.Tensor, axis=None) -> torch.Tensor:
-    """``jnp.median``: mean of the two middle values; NaN if any is NaN."""
+    """``jnp.median``: mean of the two middle values; NaN if any is NaN.
+
+    Where :func:`median_route` says ``"kernel"`` (a CUDA float32 stack
+    reduced along a leading axis of at most STACK_MEDIAN_MAX) this runs
+    the kernel K9 (``csrc/stackmedian.cu``), one launch a call, counted
+    in ``median.launches``; everything else sorts.  Both give the same
+    bits, up to the sign of a zero median.
+    """
+    if median_route(x, axis) == "kernel":
+        return _stack_median_cuda(x)
+    return _median_sort(x, axis)
+
+
+median.launches = 0
+
+
+def _median_sort(x: torch.Tensor, axis=None) -> torch.Tensor:
+    """The sort route of :func:`median`, on any device (K9's plain
+    version)."""
     if axis is None:
         x = x.reshape(-1)
         axis = 0
@@ -32,6 +56,37 @@ def median(x: torch.Tensor, axis=None) -> torch.Tensor:
     hi = xs.select(axis, n // 2)
     med = (lo + hi) * 0.5
     return torch.where(torch.isnan(x).any(dim=axis), _NAN, med)
+
+
+def median_route(x: torch.Tensor, axis=None) -> str:
+    """Which route :func:`median` takes for ``x`` and ``axis``:
+    ``"kernel"`` or ``"sort"`` (:func:`stack_route` of its attributes)."""
+    return stack_route(x.device.type, x.dtype, tuple(x.shape), axis)
+
+
+def stack_route(device_type: str, dtype, shape: tuple, axis) -> str:
+    """``"kernel"`` for a CUDA float32 array reduced along axis 0 of
+    length 1 .. STACK_MEDIAN_MAX into 1 .. 2**31 - 1 medians (an int
+    of the launcher), ``"sort"`` for anything else."""
+    stack = (device_type == "cuda" and dtype == torch.float32
+             and axis == 0 and len(shape) >= 1
+             and 1 <= shape[0] <= STACK_MEDIAN_MAX
+             and 1 <= math.prod(shape[1:]) < 2 ** 31)
+    return "kernel" if stack else "sort"
+
+
+def _stack_median_cuda(x: torch.Tensor) -> torch.Tensor:
+    # a strided stack is copied: one read and one write of it, less
+    # than the sort route's copy of the values into its sort
+    x = x.contiguous()
+    kernels.require_cuda("stack_median", x)
+    out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        kernels.check(kernels.lib().bbt_stack_median(
+            x.data_ptr(), out.data_ptr(), x.shape[0], out.numel(),
+            kernels.stream_of(x)), "stack_median")
+    median.launches += 1
+    return out
 
 
 def nanmedian(x: torch.Tensor) -> torch.Tensor:

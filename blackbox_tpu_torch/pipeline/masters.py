@@ -17,9 +17,10 @@ module-level functions (:func:`stack_median`, :func:`normalise`,
 :func:`gaincf`), each called once a master through this module, and
 spans of :mod:`blackbox_tpu_torch.utils.timing`: ``master`` (attributes
 ``imgtype``, ``frames``, ``planes``) over ``master.stack``,
-``master.median``, ``master.normalise`` and ``master.gaincf`` (flats)
-and ``master.stats``; the counter ``master.frames`` counts the frames
-stacked.
+``master.median`` (``route``, ``kernel`` or ``sort`` as
+``ops.stats.median_route`` gives it, and ``N``), ``master.normalise``
+and ``master.gaincf`` (flats) and ``master.stats``; the counter
+``master.frames`` counts the frames stacked.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 
 from blackbox_tpu_torch.core import maskbits
 from blackbox_tpu_torch.core.geometry import CCDGeometry
-from blackbox_tpu_torch.ops.stats import masked_mean_std, median
+from blackbox_tpu_torch.ops.stats import (masked_mean_std, median,
+                                          median_route)
 from blackbox_tpu_torch.utils.timing import count, span
 
 
@@ -67,7 +69,8 @@ def build_master(imgtype: str, frames: list, geom: CCDGeometry,
 
 def stack_median(cube):
     """The median over the frames' axis of an (N, C, ych, xch) cube."""
-    with span("master.median"):
+    with span("master.median", route=median_route(cube, 0),
+              N=int(cube.shape[0])):
         return median(cube, axis=0)
 
 

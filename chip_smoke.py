@@ -679,6 +679,8 @@ def check_kernels(card, prev):
     del img, seg
     torch.cuda.empty_cache()
     results.append(check_fill_holes(card))
+    torch.cuda.empty_cache()
+    results.append(check_stack_median(card))
     return results
 
 
@@ -1040,6 +1042,69 @@ def check_fill_holes(card):
                 call_bound_ms=[c[2] for c in one],
                 three_rounds_ms=[calls[name, 3][0] for name in masks])
 
+
+def check_stack_median(card):
+    """K9 against the sort route on the card, bit for bit, at the
+    masters' cubes: a 20-deep bias and a 15-deep flat of the channel
+    stacks (16 x 5280 x 1320), one NaN pixel each; then the sign K9
+    gives a median of columns that mix -0.0 and +0.0 (the sort route's
+    there is the order torch.sort leaves equal keys in).  The entry's
+    times are the bias's and the flat's."""
+    from blackbox_tpu_torch.core.geometry import MEERLICHT
+    from blackbox_tpu_torch.ops import filters, stats
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    err, calls = 0.0, {}
+    for name, n in (("bias", 20), ("flat", 15)):
+        x = torch.randn((n, *MEERLICHT.chan_shape), generator=gen,
+                        device="cuda")
+        x.mul_(5.0).add_(1000.0)
+        x[n // 2, 3, 17, 5] = float("nan")
+        got = stats.median(x, axis=0)
+        want = stats._median_sort(x, 0)
+        err = max(err, max_abs_err(got, want))
+        nan = torch.isnan(want)
+        if not bool(((got.view(torch.int32) == want.view(torch.int32))
+                     | nan).all()):
+            raise AssertionError(f"K9 {name}: bits differ from the sort")
+        del got, want, nan
+        tk = cuda_ms(lambda: stats.median(x, axis=0), reps=20)
+        tpl = cuda_ms(lambda: stats._median_sort(x, 0), reps=3)
+        m = x[0].numel()
+        # the stack read once and the medians written once; the network
+        # and the NaN test a column
+        ops = m * (filters.comparator_cost(filters.stack_median_ops(n)[0])
+                   + n)
+        b = bound(4.0 * (n + 1) * m, f32_ops=ops)
+        calls[name] = (tk, tpl, b[0])
+        print(f"K9 stack_median {name} {'x'.join(map(str, x.shape))}: "
+              f"bit-exact, kernel {tk:.4f} ms ({100 * b[0] / tk:.1f}% of "
+              f"its bound), sort {tpl:.3f} ms, bound {b[0]:.4f} ms ({b[1]}) "
+              f"[{card}]")
+        del x
+        torch.cuda.empty_cache()
+    signs = {}
+    for n in (2, 3, 20):
+        x = torch.where(torch.rand((n, 4096), generator=gen, device="cuda")
+                        < 0.5, -0.0, 0.0)
+        got, want = stats.median(x, axis=0), stats._median_sort(x, 0)
+        if not bool((got == want).all()):
+            raise AssertionError("K9 on signed zeros differs from the sort")
+        signs[n] = (int(torch.signbit(got).sum()),
+                    int(torch.signbit(want).sum()))
+    print(f"K9 on columns of -0.0 and +0.0 (N: medians -0.0 by K9, by the "
+          f"sort, of 4096): {signs} [{card}]")
+    return dict(entry("stack_median", "blackbox_tpu_torch/csrc/stackmedian.cu",
+                      "none (blackbox_tpu/pipeline/masters.py:29, jnp.median)",
+                      err, sum(c[0] for c in calls.values()),
+                      sum(c[1] for c in calls.values()),
+                      sum(c[2] for c in calls.values()), "bytes"),
+                call_ms=[c[0] for c in calls.values()],
+                call_plain_ms=[c[1] for c in calls.values()],
+                call_bound_ms=[c[2] for c in calls.values()],
+                signed_zeros=signs)
+
+
 def k7_ops():
     """Float operations of csrc/lacosmic.cu: (dense per pixel and
     iteration, per pixel listed for the 7x7 median, per pixel listed for
@@ -1220,8 +1285,8 @@ def check_tiny(reduce_ctx_for, card):
 def counters():
     """The launch-counted wrappers, one per kernel, by JSON name."""
     from blackbox_tpu_torch.ops import detection, fft, filters, labeling
-    from blackbox_tpu_torch.ops import lacosmic_fused, morphology, upsample
-    from blackbox_tpu_torch.ops import windows
+    from blackbox_tpu_torch.ops import lacosmic_fused, morphology, stats
+    from blackbox_tpu_torch.ops import upsample, windows
     return {"label_propagate": labeling.label_propagate,
             "median_filter": filters.median_filter,
             "gather_slot_windows": windows.gather_slot_windows,
@@ -1229,7 +1294,8 @@ def counters():
             "fused_detect": detection.fused_detect,
             "lacosmic_fused": lacosmic_fused.lacosmic_fused,
             "upsample_mesh": upsample.upsample_mesh,
-            "fill_holes": morphology.fill_holes}
+            "fill_holes": morphology.fill_holes,
+            "stack_median": stats.median}
 
 
 def zero_counts():

@@ -1323,6 +1323,130 @@ def test_fill_holes_kernel_spiral(dev, iterations, where):
     assert not torch.equal(want, M._fill_holes(m, iterations + 1))
 
 
+def _stack_median_same(x, axis=0):
+    """K9 through ``stats.median`` against the sort route on the card,
+    bit for bit, NaN positions included; one launch."""
+    from blackbox_tpu_torch.ops import stats
+    before = stats.median.launches
+    got = stats.median(x, axis=axis)
+    assert stats.median.launches == before + 1
+    want = stats._median_sort(x, axis)
+    _same_bits(got, want)
+    return got
+
+
+@pytest.mark.parametrize("n", range(1, 33))
+def test_stack_median_kernel_depths(dev, n):
+    """Every depth the kernel is built for, on column counts that do and
+    do not take its float4 loads, and on a stack whose first element is
+    not 16-byte aligned."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    for cols in ((1001,), (3, 37), (4, 64), (1,)):
+        x = 100 + 20 * torch.randn((n, *cols), generator=g, device=dev)
+        x[torch.rand(x.shape, generator=g, device=dev) < 0.01] = float("nan")
+        _stack_median_same(x)
+    x = torch.randn(n * 256 + 1, generator=g, device=dev)[1:].view(n, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _stack_median_same(x)
+
+
+@pytest.mark.parametrize("n", [20, 15])
+def test_stack_median_kernel_master_cubes(dev, n):
+    """The masters' cubes: a 20-deep bias and a 15-deep flat of
+    16 x 5280 x 1320 channel stacks."""
+    g = torch.Generator(device=dev).manual_seed(100 + n)
+    x = torch.randn((n, 16, 5280, 1320), generator=g, device=dev)
+    x.mul_(5.0).add_(1000.0)
+    x[n // 2, 3, 17, 5] = float("nan")
+    x[:, 7, 100, 100:104] = float("inf")
+    _stack_median_same(x)
+
+
+def test_stack_median_kernel_special_values(dev):
+    """NaN in one frame, NaN in every frame, +-inf, -inf against +inf,
+    huge values whose sum overflows, ties, a non-contiguous stack, and
+    the background mesh filter's (9, 41, 41)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    for n in (4, 9, 20, 21):
+        x = torch.randn((n, 517), generator=g, device=dev)
+        x[0, :5] = float("nan")
+        x[:, 5:10] = float("nan")
+        x[:, 10:15] = float("inf")
+        x[:, 15:20] = -float("inf")
+        x[: n // 2, 20:25] = -float("inf")
+        x[n // 2:, 20:25] = float("inf")
+        x[:, 25:30] = torch.finfo(torch.float32).max
+        x[:, 30:40] = torch.randint(-2, 3, (n, 10), generator=g,
+                                    device=dev).float()
+        got = _stack_median_same(x)
+        assert bool(torch.isnan(got[:10]).all())
+        if n % 2:
+            assert bool(torch.isposinf(got[25:30]).all())
+    base = torch.randn((1320, 20, 33), generator=g, device=dev)
+    for x in (base.permute(1, 0, 2), base[:, ::2, 1:].transpose(0, 1)):
+        assert not x.is_contiguous()
+        _stack_median_same(x)
+    mesh = 300 + torch.randn((9, 41, 41), generator=g, device=dev)
+    _stack_median_same(mesh)
+
+
+def test_stack_median_kernel_signed_zeros(dev):
+    """Columns that mix -0.0 and +0.0: the sort route's sign there is
+    the order torch.sort leaves equal keys in, so K9 is held to == (the
+    sign it gives is in PERF.md)."""
+    from blackbox_tpu_torch.ops import stats
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n in (2, 3, 20):
+        sign = torch.rand((n, 999), generator=g, device=dev) < 0.5
+        x = torch.where(sign, -0.0, 0.0)
+        got = stats.median(x, axis=0)
+        assert bool((got == stats._median_sort(x, 0)).all())
+        assert bool((got == 0).all())
+
+
+def test_stack_median_unrouted_calls_sort(dev):
+    """Calls outside the rule launch nothing and give the sort route's
+    answer: all elements, another axis, a long axis, float64."""
+    from blackbox_tpu_torch.ops import stats
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((20, 300), generator=g, device=dev)
+    cases = [(x, None), (x, 1), (x.t().contiguous(), 1),
+             (torch.randn((33, 300), generator=g, device=dev), 0),
+             (x.double(), 0)]
+    for t, axis in cases:
+        before = stats.median.launches
+        got = stats.median(t, axis=axis)
+        assert stats.median.launches == before
+        _same(got, stats._median_sort(t, axis))
+
+
+@pytest.mark.parametrize("n", [3, 4, 15, 20])
+@pytest.mark.parametrize("kind", ["bias", "flat", "dark"])
+def test_stack_median_build_master_on_card(dev, kind, n):
+    """build_master on the card (its stack median through K9) against
+    the benchmark's plain reference on the card (sorts), at TINY: the
+    master bit for bit, the statistics as tests/test_torch_masters_build
+    holds them."""
+    from test_torch_masters_build import NAN_AT, _frames, _stats_close
+    from portbench.reference.core import geometry as ref_geometry
+    from portbench.reference.pipeline import masters as ref
+    from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.ops import stats
+    from blackbox_tpu_torch.pipeline import masters
+    frames = [f.to(dev) for f in
+              _frames("flat" if kind == "flat" else "bias", n, seed=n)]
+    exptimes = torch.linspace(30.0, 90.0, n) if kind == "dark" else None
+    want_m, want_s = ref.build_master(kind, list(frames), ref_geometry.TINY,
+                                      exptimes=exptimes)
+    before = stats.median.launches
+    got_m, got_s = masters.build_master(kind, list(frames), TINY,
+                                        exptimes=exptimes)
+    assert stats.median.launches == before + 1
+    _same_bits(got_m, want_m)
+    assert bool(torch.isnan(got_m[NAN_AT]))
+    assert _stats_close(got_s, want_s)
+
+
 @pytest.mark.parametrize("net", ["trailnet", "vetnet"])
 def test_weight_file_round_trip_from_card(dev, net, tmp_path):
     """Parameters on the card written by save_params (flax msgpack) and
