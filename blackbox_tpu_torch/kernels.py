@@ -6,7 +6,11 @@ this file (listed in ``.gitignore``).  The library name carries a hash
 of the sources, so an edited kernel is rebuilt and a stale library is
 never loaded.  The library is bound with ctypes: every pointer and the
 stream are ``c_void_p``, and every launcher returns
-``cudaGetLastError()``, which :func:`check` turns into an exception.
+``cudaGetLastError()``, which :func:`launch` turns into an exception.
+
+Every wrapper of a kernel launches it through :func:`launch`, which
+validates the operands, runs the launcher on PyTorch's current stream
+and counts the call in :data:`launches` under the wrapper's name.
 
 Nothing here runs at import: the CPU tests import every module, and the
 machine they run on has no ``nvcc``.
@@ -14,6 +18,7 @@ machine they run on has no ``nvcc``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -65,7 +70,24 @@ _SIGNATURES = {
     "bbt_stack_median": (_P, _P, _I, _I, _P),
 }
 
-_lib: ctypes.CDLL | None = None
+# each wrapper's name (the key of its count in ``launches``) and the
+# launcher it calls
+LAUNCHERS = {
+    "label_propagate": "bbt_label_propagate",
+    "median_filter": "bbt_median_filter",
+    "gather_slot_windows": "bbt_gather_windows",
+    "fft_cols_split": "bbt_fft_cols",
+    "fused_detect": "bbt_fused_detect",
+    "lacosmic_fused": "bbt_lacosmic_iter",
+    "upsample_mesh": "bbt_upsample_mesh",
+    "fill_holes": "bbt_fill_holes",
+    "stack_median": "bbt_stack_median",
+}
+
+# launcher calls by wrapper name, since import or the last ``clear()``
+launches: collections.Counter = collections.Counter()
+
+_handle: ctypes.CDLL | None = None
 
 
 def _nvcc() -> str:
@@ -124,10 +146,10 @@ def build() -> Path:
     return lib_path
 
 
-def lib() -> ctypes.CDLL:
+def _lib() -> ctypes.CDLL:
     """The loaded kernel library (built on the first call)."""
-    global _lib
-    if _lib is None:
+    global _handle
+    if _handle is None:
         handle = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
@@ -135,34 +157,34 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.bbt_error_string.argtypes = [ctypes.c_int]
         handle.bbt_error_string.restype = ctypes.c_char_p
-        _lib = handle
-    return _lib
+        _handle = handle
+    return _handle
 
 
-def check(err: int, kernel: str) -> None:
-    """Raise if a launcher reported a CUDA error."""
+def launch(name: str, operands, *args) -> None:
+    """Run wrapper ``name``'s launcher on ``args`` and the current stream
+    of the operands' device, and count the call in ``launches``.
+
+    ``operands`` are the call's tensors: CUDA, on one device and
+    contiguous, or a ``ValueError`` before anything is built or loaded.
+    A CUDA error the launcher reports raises a ``RuntimeError``."""
+    dev = operands[0].device
+    for t in operands:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: operands must be CUDA tensors on "
+                             f"one device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    with torch.cuda.device(dev):
+        err = getattr(_lib(), LAUNCHERS[name])(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        msg = lib().bbt_error_string(err).decode()
-        raise RuntimeError(f"{kernel}: CUDA error {err}: {msg}")
+        msg = _lib().bbt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+    launches[name] += 1
 
 
 def host_floats(values) -> ctypes.Array:
     """A host float32 array of ``values``, for a launcher argument that
     the launcher copies into its kernel's parameters."""
     return (ctypes.c_float * len(values))(*values)
-
-
-def stream_of(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Validate kernel operands: CUDA, one device, contiguous."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{name}: operands must be CUDA tensors on "
-                             f"one device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")

@@ -188,7 +188,6 @@ def fused_detect(image, bkg_std, excl, taps, nsigma: float,
         exc = (excl if excl.dtype == torch.bool else excl != 0)
         exc = exc.contiguous().view(torch.uint8)
     ops = [t for t in (img, std, exc) if t is not None]
-    kernels.require_cuda("fused_detect", *ops)
     if any(t.shape != (H, W) for t in ops):
         raise ValueError("fused_detect: image, std and excl must share "
                          "one (H, W) shape")
@@ -204,18 +203,13 @@ def fused_detect(image, bkg_std, excl, taps, nsigma: float,
                        dtype=torch.int32, device=dev)
     ntaps = 0 if taps is None else len(taps)
     taps_host = kernels.host_floats(taps) if ntaps else None
-    with torch.cuda.device(dev):
-        kernels.check(kernels.lib().bbt_fused_detect(
-            img.data_ptr(), None if std is None else std.data_ptr(),
-            None if exc is None else exc.data_ptr(), taps_host, ntaps,
-            float(nsigma), int(absval), int(iters), H, W, det.data_ptr(),
-            work.data_ptr(), seg.data_ptr(), count.data_ptr(),
-            kernels.stream_of(img)), "fused_detect")
-    fused_detect.launches += 1
+    kernels.launch("fused_detect", ops, img.data_ptr(),
+                   None if std is None else std.data_ptr(),
+                   None if exc is None else exc.data_ptr(), taps_host, ntaps,
+                   float(nsigma), int(absval), int(iters), H, W,
+                   det.data_ptr(), work.data_ptr(), seg.data_ptr(),
+                   count.data_ptr())
     return seg, count
-
-
-fused_detect.launches = 0
 
 
 def segment_roots(seg, max_sources: int):

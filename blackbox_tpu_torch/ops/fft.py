@@ -324,23 +324,16 @@ def _fft_cols_cuda(xr, xi, inverse: bool, scale: float):
     # the DFT_N2 constants are compiled in (csrc/fft_constants.cuh)
     twa_re, twa_im, twb_re, twb_im = _device_tables(
         N, inverse, str(xr.device))[:4]
-    kernels.require_cuda("fft_cols_split", xr, xi, twa_re)
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     tmp_r = torch.empty_like(xr)
     tmp_i = torch.empty_like(xi)
-    with torch.cuda.device(xr.device):
-        kernels.check(kernels.lib().bbt_fft_cols(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            tmp_r.data_ptr(), tmp_i.data_ptr(), twa_re.data_ptr(),
-            twa_im.data_ptr(), twb_re.data_ptr(), twb_im.data_ptr(),
-            N1, N2, k, L, int(inverse), float(np.float32(scale)),
-            kernels.stream_of(xr)), "fft_cols_split")
-    fft_cols_split.launches += 1
+    kernels.launch("fft_cols_split", (xr, xi, twa_re),
+                   xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                   tmp_r.data_ptr(), tmp_i.data_ptr(), twa_re.data_ptr(),
+                   twa_im.data_ptr(), twb_re.data_ptr(), twb_im.data_ptr(),
+                   N1, N2, k, L, int(inverse), float(np.float32(scale)))
     return yr, yi
-
-
-fft_cols_split.launches = 0
 
 
 def fft2_split(xr, xi):

@@ -527,18 +527,11 @@ def median_filter(img: torch.Tensor, k: int, strip_rows: int = 264):
     if img.device.type == "cpu":
         return _median_plain(img, k, strip_rows)
     img = img.contiguous()
-    kernels.require_cuda("median_filter", img)
     H, W = img.shape
     out = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        kernels.check(kernels.lib().bbt_median_filter(
-            img.data_ptr(), out.data_ptr(), H, W, k,
-            kernels.stream_of(img)), "median_filter")
-    median_filter.launches += 1
+    kernels.launch("median_filter", (img, out), img.data_ptr(),
+                   out.data_ptr(), H, W, k)
     return out
-
-
-median_filter.launches = 0
 
 
 def median_filter_sep(img: torch.Tensor, k: int, strip_rows: int = 264):

@@ -68,7 +68,6 @@ def label_propagate(lab: torch.Tensor, iters: int) -> torch.Tensor:
     if lab.dtype != torch.int32 or lab.dim() != 2:
         raise ValueError("label_propagate: (H, W) int32 labels expected")
     lab = lab.contiguous()
-    kernels.require_cuda("label_propagate", lab)
     H, W = lab.shape
     big = H * W + 2
     # the kernel's list of tiles that hold foreground, and its count
@@ -76,20 +75,14 @@ def label_propagate(lab: torch.Tensor, iters: int) -> torch.Tensor:
                        dtype=torch.int32, device=lab.device)
     src = lab
     done = 0
-    with torch.cuda.device(lab.device):
-        while done < iters:
-            steps = min(_KERNEL_STEPS, iters - done)
-            dst = torch.empty_like(lab)
-            kernels.check(kernels.lib().bbt_label_propagate(
-                src.data_ptr(), dst.data_ptr(), work.data_ptr(), H, W, steps,
-                big, kernels.stream_of(lab)), "label_propagate")
-            label_propagate.launches += 1
-            src = dst
-            done += steps
+    while done < iters:
+        steps = min(_KERNEL_STEPS, iters - done)
+        dst = torch.empty_like(lab)
+        kernels.launch("label_propagate", (src, dst, work), src.data_ptr(),
+                       dst.data_ptr(), work.data_ptr(), H, W, steps, big)
+        src = dst
+        done += steps
     return src
-
-
-label_propagate.launches = 0
 
 
 def label_components(mask: torch.Tensor, iters: int = 64) -> torch.Tensor:

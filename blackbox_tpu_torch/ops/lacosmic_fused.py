@@ -189,18 +189,15 @@ def _iter_cuda(clean, inm, crm, rdn, sigclip: float, sigfrac: float,
     He, We = Hp + 2 * HALO, Wp + 2 * HALO
     dev = clean.device
     ops = [t for t in (clean, inm, crm, rdn, total, counts) if t is not None]
-    kernels.require_cuda("lacosmic_fused", *ops)
     scratch = torch.empty((6, He, We), dtype=torch.float32, device=dev)
     out_c = torch.empty(padded, dtype=torch.float32, device=dev)
     out_m = torch.empty(padded, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        kernels.check(kernels.lib().bbt_lacosmic_iter(
-            clean.data_ptr(), *clean.shape, inm.data_ptr(), H, W,
-            None if crm is None else crm.data_ptr(), rdn.data_ptr(),
-            out_c.data_ptr(), out_m.data_ptr(), scratch.data_ptr(),
-            counts.data_ptr(), total.data_ptr(), Hp, Wp, HALO,
-            float(sigclip), float(sigclip * sigfrac), float(objlim),
-            kernels.stream_of(clean)), "lacosmic_fused")
+    kernels.launch("lacosmic_fused", ops, clean.data_ptr(), *clean.shape,
+                   inm.data_ptr(), H, W,
+                   None if crm is None else crm.data_ptr(), rdn.data_ptr(),
+                   out_c.data_ptr(), out_m.data_ptr(), scratch.data_ptr(),
+                   counts.data_ptr(), total.data_ptr(), Hp, Wp, HALO,
+                   float(sigclip), float(sigclip * sigfrac), float(objlim))
     return out_c, out_m
 
 
@@ -291,9 +288,5 @@ def _run_cuda(data, inmask, rdnoise, sigclip, sigfrac, objlim, niter):
         clean, crm = _iter_cuda(clean, inm, crm, rdn, sigclip, sigfrac,
                                 objlim, padded_shape(H, W), totals[i],
                                 listed[i])
-        lacosmic_fused.launches += 1
     counts = torch.diff(totals, prepend=totals.new_zeros(1))
     return clean[:H, :W], crm[:H, :W] > 0.5, counts, listed
-
-
-lacosmic_fused.launches = 0

@@ -104,7 +104,6 @@ def _fill_holes_cuda(m: torch.Tensor, iterations: int) -> torch.Tensor:
     if m.dtype != torch.bool or m.dim() < 2:
         raise ValueError("fill_holes: (..., H, W) bool mask expected")
     m = m.contiguous()
-    kernels.require_cuda("fill_holes", m)
     H, W = m.shape[-2], m.shape[-1]
     if m.numel() == 0:
         return m.clone()
@@ -115,15 +114,9 @@ def _fill_holes_cuda(m: torch.Tensor, iterations: int) -> torch.Tensor:
     # plane of words each
     scratch = torch.empty(4 * words, dtype=torch.int32, device=m.device)
     out = torch.empty_like(m)
-    with torch.cuda.device(m.device):
-        kernels.check(kernels.lib().bbt_fill_holes(
-            m.data_ptr(), out.data_ptr(), scratch.data_ptr(), planes, H, W,
-            max(iterations, 1), kernels.stream_of(m)), "fill_holes")
-    fill_holes.launches += 1
+    kernels.launch("fill_holes", (m,), m.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr(), planes, H, W, max(iterations, 1))
     return out
-
-
-fill_holes.launches = 0
 
 
 def _fill_holes(m: torch.Tensor, iterations: int) -> torch.Tensor:

@@ -33,15 +33,12 @@ def median(x: torch.Tensor, axis=None) -> torch.Tensor:
     Where :func:`median_route` says ``"kernel"`` (a CUDA float32 stack
     reduced along a leading axis of at most STACK_MEDIAN_MAX) this runs
     the kernel K9 (``csrc/stackmedian.cu``), one launch a call, counted
-    in ``median.launches``; everything else sorts.  Both give the same
-    bits, up to the sign of a zero median.
+    in ``kernels.launches["stack_median"]``; everything else sorts.  Both
+    give the same bits, up to the sign of a zero median.
     """
     if median_route(x, axis) == "kernel":
         return _stack_median_cuda(x)
     return _median_sort(x, axis)
-
-
-median.launches = 0
 
 
 def _median_sort(x: torch.Tensor, axis=None) -> torch.Tensor:
@@ -79,13 +76,9 @@ def _stack_median_cuda(x: torch.Tensor) -> torch.Tensor:
     # a strided stack is copied: one read and one write of it, less
     # than the sort route's copy of the values into its sort
     x = x.contiguous()
-    kernels.require_cuda("stack_median", x)
     out = torch.empty(x.shape[1:], dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        kernels.check(kernels.lib().bbt_stack_median(
-            x.data_ptr(), out.data_ptr(), x.shape[0], out.numel(),
-            kernels.stream_of(x)), "stack_median")
-    median.launches += 1
+    kernels.launch("stack_median", (x,), x.data_ptr(), out.data_ptr(),
+                   x.shape[0], out.numel())
     return out
 
 

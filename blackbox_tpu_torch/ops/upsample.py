@@ -72,22 +72,15 @@ def upsample_mesh(meshes, Wy, Wx, out_shape):
                          f"and output {(H, W)}")
     wx = wx.contiguous()
     wy = wy.contiguous()
-    kernels.require_cuda("upsample_mesh", m, wy, wx)
     out = torch.empty((n, H, W), dtype=torch.float32, device=m.device)
     # scratch of the kernel's first launch: Wy @ mesh, and the band of
     # nonzero weights of each row of Wx (weight_bands)
     up = torch.empty((n, H, nx), dtype=torch.float32, device=m.device)
     bands = torch.empty((W, 2), dtype=torch.int32, device=m.device)
-    with torch.cuda.device(m.device):
-        kernels.check(kernels.lib().bbt_upsample_mesh(
-            m.data_ptr(), wy.data_ptr(), wx.data_ptr(), out.data_ptr(),
-            up.data_ptr(), bands.data_ptr(), n, H, W, ny, nx,
-            kernels.stream_of(m)), "upsample_mesh")
-    upsample_mesh.launches += 1
+    kernels.launch("upsample_mesh", (m, wy, wx), m.data_ptr(), wy.data_ptr(),
+                   wx.data_ptr(), out.data_ptr(), up.data_ptr(),
+                   bands.data_ptr(), n, H, W, ny, nx)
     return tuple(out.unbind(0))
-
-
-upsample_mesh.launches = 0
 
 
 def weight_bands(w: torch.Tensor) -> torch.Tensor:

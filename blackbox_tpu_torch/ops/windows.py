@@ -87,19 +87,12 @@ def _gather_cuda(imgs, y0, x0, size: int, n_active):
     if n_active is not None:
         nact = torch.as_tensor(n_active, dtype=torch.int32,
                                device=y0.device).reshape(1)
-    kernels.require_cuda("gather_slot_windows", *imgs, y0, x0,
-                         *(() if nact is None else (nact,)))
     outs = tuple(torch.empty((N, size, size), dtype=im.dtype,
                              device=im.device) for im in imgs)
     ptr = [im.data_ptr() for im in imgs] + [None] * (3 - len(imgs))
     optr = [o.data_ptr() for o in outs] + [None] * (3 - len(imgs))
-    with torch.cuda.device(y0.device):
-        kernels.check(kernels.lib().bbt_gather_windows(
-            *ptr, *optr, len(imgs), y0.data_ptr(), x0.data_ptr(),
-            None if nact is None else nact.data_ptr(), N, H, W, size,
-            kernels.stream_of(y0)), "gather_slot_windows")
-    gather_slot_windows.launches += 1
+    kernels.launch("gather_slot_windows",
+                   (*imgs, y0, x0, *(() if nact is None else (nact,))),
+                   *ptr, *optr, len(imgs), y0.data_ptr(), x0.data_ptr(),
+                   None if nact is None else nact.data_ptr(), N, H, W, size)
     return outs
-
-
-gather_slot_windows.launches = 0

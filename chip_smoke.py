@@ -13,37 +13,29 @@ Phases, each printing its own lines:
    (``extract_transients``' form), the k = 3, 5, 7 medians (K2) of a
    10560² frame and of a copy with 1e-4 of its pixels NaN, 20000 32² +
    1024 96² window gathers (K4) from an f32 and an int32 frame with
-   n_active < N (and on edge cases: n_active 0, 1 and N, sizes 1, 26
-   and 96, windows clamped at the four corners, three images), the
-   split-real FFT (K6) of a 10752 x 10752 pair
+   n_active < N, the split-real FFT (K6) of a 10752 x 10752 pair
    forward and inverse (each pass's two launches, step A and radix-2,
    timed apart under ``torch.profiler``), and the fused detection (K5)
    in its detection form (the star field, 9 taps, a std map, an
    exclusion, 32 steps) and its transient form (|x|, no taps, 48
    steps), and the hole fill (K8) on a frame's two calls, a
    16 x 5280 x 1320 stack of closed saturated-star masks and a 10560²
-   cosmic mosaic, at one round and at three.  Both times come from CUDA
-   events (K4's two calls, ~0.1 ms
-   each, as the median of 25 launches each timed apart from an idle
-   card, ``median_ms``); each kernel's bound is
-   worked out from the bytes it must move and the operations it must
-   do at those shapes (``bound``; K4's for each of its two calls).
-   The times of K1's, K4's, K5's, K6's and K7's previous designs are printed
-   beside theirs (``PREVIOUS_MS``); K4's previous design is also built
-   (``PREVIOUS_K4_SOURCE``) and timed beside the current one in this
-   run, through the same host path, from an idle card and behind a
-   sleep kernel (the device's time alone).
+   cosmic mosaic, at one round and at three, and the stack median (K9)
+   at the masters' cubes.  Both times come from CUDA events (K4's two
+   calls, ~0.1 ms each, as the median of 25 launches each timed apart
+   from an idle card and again behind a sleep kernel, ``median_ms``);
+   each kernel's bound is the least time ``portbench/peaks.least_s``
+   gives the bytes it must move and the operations it must do at those
+   shapes (``least_ms``; K4's for each of its two calls).  The kernels'
+   edge cases, and a TINY reduction on the card against the CPU, are
+   ``tests/test_torch_cuda.py``'s (``-m cuda``).
 3. The reduction (``make_reduce_fn``, production configuration with the
-   PSF stages on) of a TINY frame on the card held against the same
-   frame reduced on the CPU with the plain versions, then of three full
-   MeerLICHT frames made on the card from three seeds.  After the
-   counted run, one more frame with every K4 call recorded
-   (``k4_calls``): each call's live slots, and each call again through
-   both K4 designs (``k4_path_replay``).  Phase 7's night prints the
-   live slots of its K4 calls as well.  Each frame's line (here and in
-   phase 4's timed scene) states the branch its L.A.Cosmic passes took
-   (``lacosmic_watch``: the windowed rounds, their nact, chunks and
-   changed windows, or the dense branch).
+   PSF stages on) of three full MeerLICHT frames made on the card from
+   three seeds.  Each frame's line (here and in phase 4's timed scene)
+   states the branch its L.A.Cosmic passes took (``lacosmic_watch``:
+   the windowed rounds, their nact, chunks and changed windows, or the
+   dense branch).  Phase 7's night prints the live slots of its K4
+   calls (``k4_calls``).
 4. The science path (``make_science_programs``): the reference products
    from seed 12345, then a timed scene (bench.py's registration: 0.05
    deg rotation, offset (3.2, -2.7), 8 strips) of one warm-up and two
@@ -190,10 +182,10 @@ Phases, each printing its own lines:
    shape, ``unet_*``; each phase's launches under its own key), then
    the last line ``{"ok": true, "device": {...}}``.
 
-The launch counters are zeroed just before each of phases 3, 4, 5, 7's
-full night, 8, 9, 10, 11 and 12 and read just after it: every kernel
-of a phase's path
-must have moved, K1 must show 1 launch per catalog frame and 2 per
+The launch counts (``kernels.launches``, by wrapper name) are cleared
+just before each of phases 3, 4, 5, 7's full night, 8, 9, 10, 11 and
+12 and read just after it: every kernel of a phase's path must have
+moved, K1 must show 1 launch per catalog frame and 2 per
 science frame (its 48 transient steps are one launch), K6 6 per science
 frame, K7 3 per frame it calibrates (it counts iterations, four CUDA
 launches each) and K2 none in phase 5; K8 must show 2 launches a frame
@@ -204,10 +196,9 @@ in phase 3 and be launched in every phase that calibrates a frame (3,
 frame and, in the fifth visit, once for each U-Net, catalog and
 subtraction, and K6 6 times (one subtraction), phase 10's batched
 reduce K1 twice (two frames), phase 11 K2 and K4, phase 12 K1, K2, K4
-and K6.  Any failure raises:
-the script then exits non-zero and prints no ok line.
-It needs a CUDA device and the repository's port package, and the
-``tests/night_parity.py`` helper beside it.
+and K6.  Any failure raises: the script then exits non-zero and prints
+no ok line.  It needs a CUDA device, the repository's port package,
+``portbench/peaks.py`` and the ``tests/night_parity.py`` helper.
 """
 
 import contextlib
@@ -222,35 +213,10 @@ import time
 import numpy as np
 import torch
 
+from blackbox_tpu_torch import kernels
+from portbench import peaks
+
 SEEDS = (12345, 12346, 12347)
-IMG_ATOL_REL = 1e-5     # image atol per e- of overscan level (see tests)
-# one H100 SXM, NVIDIA's data sheet and Hopper white paper: the HBM3
-# rate; 128 float32 lanes an SM, so 33.5e12 float32 instructions a
-# second (the sheet's 67 TFLOP/s counts an FMA as two flops; a min, a
-# max, a multiply or an add is one instruction); 64 int32 lanes an SM
-HBM_BYTES_PER_S = 3.35e12
-F32_INSTR_PER_S = 33.5e12
-I32_INSTR_PER_S = 16.75e12
-# The previous designs of K1 (one haloed tile a block, every step over
-# the whole tile, at most 32 steps a launch), K6 (step A with its
-# constants in shared memory, nine shared-memory passes of radix-2), K5
-# (one 64² tile a block with an `iters`-wide halo, filtered and swept
-# whole) and K7 (every stage at every pixel, five launches an
-# iteration) on one H100 80GB HBM3 at 700 W, printed beside this run's
-# (PERF.md §6): K1 on the star field (chip_smoke.py) and on the
-# transient map, K6's passes and each pass's two launches
-# (kernel_profile.py), K5's two forms and K7's 3 iterations
-# (chip_smoke.py)
-PREVIOUS_MS = {"K1 star field": 6.152, "K1 transient map": 3.538,
-               "K6 forward": 3.479, "K6 inverse": 3.441,
-               "K6 forward step A": 1.123, "K6 forward radix-2": 2.329,
-               "K6 inverse step A": 1.156, "K6 inverse radix-2": 2.290,
-               "K5 detection": 15.181, "K5 transient": 9.685,
-               "K7": 52.781,
-               # K4's first design (one block a slot): the median of 25
-               # launches, each timed from an idle card (median_ms), in
-               # the last run of this script that shipped it
-               "K4 20000x32^2": 0.1684, "K4 1024x96^2": 0.0937}
 FRATIO = 1.3            # the reference is made 1.3x deeper (bench.py)
 NTRANS = 20             # transients injected into the gated scene
 
@@ -261,130 +227,6 @@ def card_label() -> str:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip()
-
-
-# K4's first design (one 256-thread block a slot, a pixel's row
-# and column by a division), built beside the port's kernels so that
-# phase 2 and the replay of a frame's gathers after phase 3 time it and
-# the current csrc/gather.cu in one call, with the same host path and
-# the same two timers
-PREVIOUS_K4_SOURCE = r"""
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
-
-__global__ void __launch_bounds__(256)
-gather_previous(const uint32_t* __restrict__ in0,
-                const uint32_t* __restrict__ in1,
-                const uint32_t* __restrict__ in2, uint32_t* __restrict__ out0,
-                uint32_t* __restrict__ out1, uint32_t* __restrict__ out2,
-                int n_img, const int* __restrict__ y0,
-                const int* __restrict__ x0, const int* __restrict__ n_active,
-                int N, int H, int W, int size) {
-  const int slot = blockIdx.x;
-  const bool live = slot < (n_active ? *n_active : N);
-  const int y = live ? min(max(y0[slot], 0), H - size) : 0;
-  const int x = live ? min(max(x0[slot], 0), W - size) : 0;
-  const int area = size * size;
-  for (int k = 0; k < n_img; ++k) {
-    const uint32_t* src = k == 0 ? in0 : (k == 1 ? in1 : in2);
-    uint32_t* dst = (k == 0 ? out0 : (k == 1 ? out1 : out2))
-                    + (size_t)slot * area;
-    for (int i = threadIdx.x; i < area; i += 256) {
-      const int r = i / size;
-      const int c = i - r * size;
-      dst[i] = live ? src[(size_t)(y + r) * W + (x + c)] : 0u;
-    }
-  }
-}
-
-extern "C" int bbt_gather_windows_previous(
-    const void* in0, const void* in1, const void* in2, void* out0,
-    void* out1, void* out2, int n_img, const void* y0, const void* x0,
-    const void* n_active, int N, int H, int W, int size, void* stream) {
-  if (n_img < 1 || n_img > 3 || size < 1 || size > H || size > W)
-    return (int)cudaErrorInvalidValue;
-  if (N == 0) return (int)cudaGetLastError();
-  gather_previous<<<N, 256, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)in0, (const uint32_t*)in1, (const uint32_t*)in2,
-      (uint32_t*)out0, (uint32_t*)out1, (uint32_t*)out2, n_img,
-      (const int*)y0, (const int*)x0, (const int*)n_active, N, H, W, size);
-  return (int)cudaGetLastError();
-}
-"""
-
-
-def start_previous_k4():
-    """Start nvcc on PREVIOUS_K4_SOURCE, next to the port's build; returns
-    a function that waits for it and loads the library."""
-    import ctypes
-    from blackbox_tpu_torch import kernels
-    kernels.BUILD.mkdir(exist_ok=True)
-    src = kernels.BUILD / f"k4_previous.{os.getpid()}.cu"
-    so = src.with_suffix(".so")
-    src.write_text(PREVIOUS_K4_SOURCE)
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
-           str(src)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-    def load():
-        out, _ = proc.communicate()
-        src.unlink(missing_ok=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on K4's previous design:\n"
-                               f"{' '.join(cmd)}\n{out}")
-        handle = ctypes.CDLL(str(so))
-        so.unlink()
-        fn = handle.bbt_gather_windows_previous
-        fn.argtypes = list(kernels._SIGNATURES["bbt_gather_windows"])
-        fn.restype = ctypes.c_int
-        return fn
-
-    return load
-
-
-def previous_gather(launch, imgs, y0, x0, size, n_active):
-    """``windows._gather_cuda`` with K4's previous design: the same host
-    path, another kernel."""
-    from blackbox_tpu_torch import kernels
-    H, W = imgs[0].shape
-    N = y0.shape[0]
-    y0 = y0.to(torch.int32).contiguous()
-    x0 = x0.to(torch.int32).contiguous()
-    nact = None
-    if n_active is not None:
-        nact = torch.as_tensor(n_active, dtype=torch.int32,
-                               device=y0.device).reshape(1)
-    kernels.require_cuda("previous K4", *imgs, y0, x0,
-                         *(() if nact is None else (nact,)))
-    outs = tuple(torch.empty((N, size, size), dtype=im.dtype,
-                             device=im.device) for im in imgs)
-    ptr = [im.data_ptr() for im in imgs] + [None] * (3 - len(imgs))
-    optr = [o.data_ptr() for o in outs] + [None] * (3 - len(imgs))
-    with torch.cuda.device(y0.device):
-        kernels.check(launch(
-            *ptr, *optr, len(imgs), y0.data_ptr(), x0.data_ptr(),
-            None if nact is None else nact.data_ptr(), N, H, W, size,
-            kernels.stream_of(y0)), "previous K4")
-    return outs
-
-
-def k4_two_designs(prev, imgs, y0, x0, size, n_active):
-    """One K4 call through the current kernel (``windows._gather_cuda``)
-    and the previous design, each bit for bit against the other; both
-    timed from an idle card and behind a sleep kernel (``median_ms``).
-    Returns {"current"|"previous": (idle ms, busy ms)}."""
-    from blackbox_tpu_torch.ops import windows
-    imgs = tuple(windows._widen(im).contiguous() for im in imgs)
-    runs = {"current": lambda: windows._gather_cuda(imgs, y0, x0, size,
-                                                    n_active),
-            "previous": lambda: previous_gather(prev, imgs, y0, x0, size,
-                                                n_active)}
-    for a, b in zip(runs["current"](), runs["previous"]()):
-        max_abs_err(a, b)
-    return {k: (median_ms(f), median_ms(f, busy=True))
-            for k, f in runs.items()}
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -445,15 +287,13 @@ def device_times(fn):
     return out
 
 
-def bound(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
-    """The least time the card could take for the work, in ms, and what
-    bounds it: the bytes moved at the HBM rate against the operations
-    at their instruction rates.  Operations count instructions: an
+def least_ms(nbytes: float, f32_ops: float = 0.0, i32_ops: float = 0.0):
+    """``peaks.least_s`` in ms: the least time the card could take for
+    the work, and what bounds it.  Operations count instructions: an
     unfused min, max, multiply or add is one (the kernels contract no
     FMA)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (f32_ops / F32_INSTR_PER_S + i32_ops / I32_INSTR_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t, by = peaks.least_s(nbytes, f32_ops, i32_ops)
+    return t * 1e3, by
 
 
 def entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by,
@@ -528,9 +368,8 @@ def label_start(mask):
     return torch.where(mask, idx, H * W + 2)
 
 
-def check_kernels(card, prev):
-    """Phase 2: each kernel against its plain version at full shapes
-    (``prev``: K4's previous design, ``start_previous_k4``)."""
+def check_kernels(card):
+    """Phase 2: each kernel against its plain version at full shapes."""
     from blackbox_tpu_torch.core.geometry import MEERLICHT
     from blackbox_tpu_torch.ops import filters, labeling, windows
 
@@ -557,12 +396,11 @@ def check_kernels(card, prev):
                         reps=1)
         nfg = int((lab < H * W + 2).sum())
         # int32 labels in and out; 8 mins a step for each foreground pixel
-        bnd = bound(8.0 * H * W, i32_ops=8.0 * steps * nfg)
+        bnd = least_ms(8.0 * H * W, i32_ops=8.0 * steps * nfg)
         k1[form] = (err, ms, plain, bnd)
         print(f"K1 label_propagate {form} {H}x{W} {steps} steps "
               f"({nfg / (H * W):.6f} of pixels set): bit-exact, kernel "
-              f"{ms:.3f} ms (previous design: "
-              f"{PREVIOUS_MS['K1 ' + form]:.3f}), plain {plain:.3f} ms, "
+              f"{ms:.3f} ms, plain {plain:.3f} ms, "
               f"bound {bnd[0]:.3f} ms ({bnd[1]}) [{card}]")
     err, ms, plain, bnd = k1["star field"]
     t_err, t_ms, t_plain, t_bnd = k1["transient map"]
@@ -589,19 +427,15 @@ def check_kernels(card, prev):
         t[k] = cuda_ms(lambda: filters.median_filter(img, k))
         tp[k] = cuda_ms(lambda: filters._median_plain(img, k, 264), reps=1)
         # per pixel: the min/max of the tile program the kernel runs; f32
-        # in and out.  The design it replaced: a column sort and the
-        # pruned sorted-column merge
+        # in and out
         ops, _, _ = filters.tile_median_ops(k, th, tw)
         per_px = filters.comparator_cost(ops) / (th * tw)
-        merge, _ = filters.sc_select_ops(k, (k * k // 2,))
-        old_px = (2 * len(filters.transposition_pairs(k))
-                  + filters.comparator_cost(merge))
-        tb[k] = bound(8.0 * H * W, f32_ops=per_px * H * W)
+        tb[k] = least_ms(8.0 * H * W, f32_ops=per_px * H * W)
         print(f"K2 median_filter k={k} {H}x{W} (and with "
               f"{int(torch.isnan(holes).sum())} NaN pixels): bit-exact, "
               f"kernel {t[k]:.3f} ms, plain {tp[k]:.3f} ms, bound "
-              f"{tb[k][0]:.3f} ms ({tb[k][1]}; {per_px:g} min/max a pixel, "
-              f"{old_px} in the sorted-column design) [{card}]")
+              f"{tb[k][0]:.3f} ms ({tb[k][1]}; {per_px:g} min/max a pixel) "
+              f"[{card}]")
     del holes
     mix = (3, 5, 5, 7)
     results.append(entry(
@@ -613,7 +447,7 @@ def check_kernels(card, prev):
 
     # K4: the catalog's small and big window gathers, n_active < N
     ms = plain = err = nbytes = lib = 0.0
-    call_bounds, call_library, designs = [], [], []
+    call_bounds, call_library, call_busy = [], [], []
     for N, size in ((20000, 32), (1024, 96)):
         y0 = torch.randint(-20, H + 20, (N,), generator=gen, device="cuda",
                            dtype=torch.int32)
@@ -643,37 +477,27 @@ def check_kernels(card, prev):
         # written for every slot
         call_bytes = 8.0 * size * size * (int(nact) + N)
         nbytes += call_bytes
-        cb = bound(call_bytes)
+        cb = least_ms(call_bytes)
         call_bounds.append(cb[0])
-        d = k4_two_designs(prev, (img, seg), y0, x0, size, nact)
-        designs.append(d)
-        prev_ms = PREVIOUS_MS[f"K4 {N}x{size}^2"]
+        # the device's time alone: a sleep kernel keeps the card busy
+        # while the host queues the call
+        busy = median_ms(lambda: windows.gather_slot_windows(
+            (img, seg), y0, x0, size, n_active=nact), busy=True)
+        call_busy.append(busy)
         print(f"K4 gather_slot_windows {N}x{size}^2 (f32 + int32, "
-              f"n_active {int(nact)}): bit-exact, kernel {tk:.4f} ms "
-              f"(the previous design in its last run: {prev_ms:.4f} ms, "
-              f"{cb[0] / prev_ms:.1%} of the bound), plain {tpl:.3f} ms, "
-              f"library (frame[iy, ix] of both frames) {tlib:.3f} ms (each "
-              f"the median of 25 launches from an idle card), bound "
-              f"{cb[0]:.4f} ms ({cb[1]}; {cb[0] / tk:.1%} of the kernel's "
-              f"time) [{card}]")
-        print(f"K4 {N}x{size}^2, both designs in this run through the same "
-              f"host path, from an idle card / behind a sleep kernel: "
-              f"current {d['current'][0]:.4f} / {d['current'][1]:.4f} ms "
-              f"({cb[0] / d['current'][0]:.1%} / "
-              f"{cb[0] / d['current'][1]:.1%} of the bound), previous (one "
-              f"block a slot) {d['previous'][0]:.4f} / "
-              f"{d['previous'][1]:.4f} ms ({cb[0] / d['previous'][0]:.1%} "
-              f"/ {cb[0] / d['previous'][1]:.1%}) [{card}]")
-    err = max(err, check_k4_edges(img, seg, card))
+              f"n_active {int(nact)}): bit-exact, kernel {tk:.4f} ms from "
+              f"an idle card, {busy:.4f} ms behind a sleep kernel "
+              f"({cb[0] / tk:.1%} / {cb[0] / busy:.1%} of the bound), "
+              f"plain {tpl:.3f} ms, library (frame[iy, ix] of both frames) "
+              f"{tlib:.3f} ms (each the median of 25 launches), bound "
+              f"{cb[0]:.4f} ms ({cb[1]}) [{card}]")
     results.append(dict(entry("gather_slot_windows",
                               "blackbox_tpu_torch/csrc/gather.cu",
                               "blackbox_tpu/pallas/gather.py:61", err, ms,
-                              plain, *bound(nbytes), library_ms=lib),
+                              plain, *least_ms(nbytes), library_ms=lib),
                         call_bound_ms=call_bounds,
                         call_library_ms=call_library,
-                        designs_ms={k: [[d[k][0] for d in designs],
-                                        [d[k][1] for d in designs]]
-                                    for k in ("current", "previous")}))
+                        call_busy_ms=call_busy))
     results.append(check_fft(card))
     results.append(check_detect(card, img))
     del img, seg
@@ -765,74 +589,6 @@ def lac_rounds(passes) -> str:
         f"{q['changed']} changed)" for q in passes)
 
 
-def k4_path_replay(ctx, card, mbias, mflat, xtalk, prev):
-    """After phase 3's counted run: one more raw -> catalog frame (seed
-    SEEDS[0]) with every K4 call's arguments kept, then each call again
-    through both K4 designs (``k4_two_designs``), so the two are compared on
-    the path's own live counts.  Returns the K4 entry's ``path_*``
-    keys."""
-    from blackbox_tpu_torch.pipeline.reduce import make_reduce_fn
-    from blackbox_tpu_torch.synth.device import make_science_device
-    gen = torch.Generator(device="cuda").manual_seed(SEEDS[0])
-    chan, osv, osh, _ = make_science_device(
-        gen, ctx.geom, nstars=4000, ncosmics=800, trail=True, nsat=20)
-    with k4_calls(True) as calls:
-        out = make_reduce_fn(ctx)(chan, osv, osh, mbias, mflat, None, xtalk)
-        torch.cuda.synchronize()
-    del out, chan, osv, osh
-    k4_live(calls, f"a raw -> catalog frame (seed {SEEDS[0]})", card)
-    tot = {"current": [0.0, 0.0], "previous": [0.0, 0.0]}
-    shapes = []
-    for N, size, nimg, n_active, (imgs, y0, x0) in calls:
-        live = N if n_active is None else int(n_active)
-        shapes.append([N, size, nimg, live])
-        d = k4_two_designs(prev, imgs, y0, x0, size, n_active)
-        for k in tot:
-            tot[k] = [tot[k][0] + d[k][0], tot[k][1] + d[k][1]]
-        print(f"K4 on a frame's own call {N}x{size}^2, {nimg} image(s), "
-              f"{live} live: current {d['current'][0]:.4f} / "
-              f"{d['current'][1]:.4f} ms, previous {d['previous'][0]:.4f} "
-              f"/ {d['previous'][1]:.4f} ms (from an idle card / behind a "
-              f"sleep kernel; bit-exact against each other) [{card}]")
-    del calls
-    print(f"K4 on a frame's own {len(shapes)} calls: current "
-          f"{tot['current'][0]:.4f} / {tot['current'][1]:.4f} ms, previous "
-          f"{tot['previous'][0]:.4f} / {tot['previous'][1]:.4f} ms a frame "
-          f"(from an idle card / behind a sleep kernel) [{card}]")
-    return {"path_calls": shapes, "path_ms": tot}
-
-
-def check_k4_edges(img, seg, card):
-    """K4 bit for bit against its plain version on the edge cases:
-    n_active 0, 1, N and None; sizes 1, 26 (the PSF's) and 96; starts
-    past all four corners and at them; three images (f32, int32,
-    f32)."""
-    from blackbox_tpu_torch.ops import windows
-    H, W = img.shape
-    third = img * -0.5 + 3.0
-    ys = torch.tensor([-40, -40, H + 40, H + 40, 0, H - 1, 0, 5000, 77],
-                      dtype=torch.int32, device="cuda")
-    xs = torch.tensor([-40, W + 40, -40, W + 40, 0, W - 1, W - 1, 5000, 9],
-                      dtype=torch.int32, device="cuda")
-    N = ys.shape[0]
-    err, ncase = 0.0, 0
-    for size in (1, 26, 96):
-        for na in (0, 1, N, None):
-            nact = None if na is None else torch.tensor(
-                na, dtype=torch.int32, device="cuda")
-            for imgs in ((img,), (img, seg), (img, seg, third)):
-                got = windows.gather_slot_windows(imgs, ys, xs, size,
-                                                  n_active=nact)
-                ref = windows._gather_plain(imgs, ys, xs, size, nact)
-                err = max(err, *(max_abs_err(a, b)
-                                 for a, b in zip(got, ref)))
-                ncase += 1
-    print(f"K4 edge cases: {ncase} calls (n_active 0, 1, N, None; sizes 1, "
-          f"26, 96; the four corners; one to three images, f32/int32/f32) "
-          f"bit-exact [{card}]")
-    return err
-
-
 def dft_ops(N2: int) -> int:
     """Float instructions of one column's DFT_N2 in csrc/fft.cu: output
     0's terms at 8 each (4 products, 2 adds, 2 into the sums), then for
@@ -870,8 +626,7 @@ def check_fft(card):
                                                           s), reps=1))
         way = "inverse" if inverse else "forward"
         print(f"K6 fft_cols_split {N}x{L} (N1 {N1}, N2 {N2}) {way}: "
-              f"bit-exact, kernel {ms[-1]:.3f} ms (previous design: "
-              f"{PREVIOUS_MS['K6 ' + way]:.3f}), plain {plain[-1]:.3f} ms "
+              f"bit-exact, kernel {ms[-1]:.3f} ms, plain {plain[-1]:.3f} ms "
               f"[{card}]")
     # each pass's two launches apart, from one profiled call of each
     split = device_times(lambda: (fft.fft_cols_split(xr, xi),
@@ -888,15 +643,14 @@ def check_fft(card):
                 "inverse radix-2"):
         got = (f"{launch_ms[key]:.3f} ms" if key in launch_ms
                else "not measured (no device events)")
-        print(f"K6 {key} launch: {got} (previous design: "
-              f"{PREVIOUS_MS['K6 ' + key]:.3f}) [{card}]")
+        print(f"K6 {key} launch: {got} [{card}]")
     lib = cuda_ms(lambda: torch.fft.fft(torch.complex(xr, xi), dim=0))
     # two planes in, two out; step A: the DFT_N2's instructions a
     # point, as the kernel shares them (dft_ops), and a twiddle; then k
     # radix-2 stages of an add/sub and a twiddle per point
     pts = float(N) * L
     ops = pts * (dft_ops(N2) / N2 + 6.0) + pts * k * 8.0
-    bnd = bound(16.0 * pts, f32_ops=ops)
+    bnd = least_ms(16.0 * pts, f32_ops=ops)
     print(f"K6 library torch.fft.fft of the same {N}x{L} pair: {lib:.3f} ms"
           f"; bound {bnd[0]:.3f} ms ({bnd[1]}) per pass [{card}]")
     return dict(entry("fft_cols_split", "blackbox_tpu_torch/csrc/fft.cu",
@@ -956,15 +710,14 @@ def check_detect(card, img):
         # bytes a pixel: the image, std (f32) and exclusion (int8) read
         # once, the int32 segment map written once; the filter's
         # multiply-adds on every pixel, 8 mins a step on the detections
-        b = bound(bpp * H * W, f32_ops=flops * H * W,
+        b = least_ms(bpp * H * W, f32_ops=flops * H * W,
                   i32_ops=8.0 * args[5] * nfg)
         ms, plain, bnd_ms = ms + tk, plain + tpl, bnd_ms + b[0]
         bound_by = b[1] if b[1] == "operations" else bound_by
         forms_ms[form] = tk
         print(f"K5 fused_detect {form} form {H}x{W} ({args[5]} steps, "
-              f"{nfg} pixels detected): bit-exact, kernel {tk:.3f} ms "
-              f"(previous design: {PREVIOUS_MS['K5 ' + form]:.3f}), plain "
-              f"{tpl:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) [{card}]")
+              f"{nfg} pixels detected): bit-exact, kernel {tk:.3f} ms, "
+              f"plain {tpl:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) [{card}]")
     return dict(entry("fused_detect", "blackbox_tpu_torch/csrc/detect.cu",
                       "blackbox_tpu/pallas/detect.py:64", err, ms, plain,
                       bnd_ms, bound_by),
@@ -1026,7 +779,7 @@ def check_fill_holes(card):
             tk = cuda_ms(lambda: M.fill_holes(m, rounds), reps=20)
             tpl = cuda_ms(lambda: M._fill_holes(m, rounds), reps=1)
             # the bool mask read once and the result written once
-            b = bound(2.0 * m.numel())
+            b = least_ms(2.0 * m.numel())
             calls[name, rounds] = (tk, tpl, b[0])
             print(f"K8 fill_holes {name} {'x'.join(map(str, m.shape))} "
                   f"{rounds} round{'s' if rounds > 1 else ''} ({filled} "
@@ -1075,7 +828,7 @@ def check_stack_median(card):
         # and the NaN test a column
         ops = m * (filters.comparator_cost(filters.stack_median_ops(n)[0])
                    + n)
-        b = bound(4.0 * (n + 1) * m, f32_ops=ops)
+        b = least_ms(4.0 * (n + 1) * m, f32_ops=ops)
         calls[name] = (tk, tpl, b[0])
         print(f"K9 stack_median {name} {'x'.join(map(str, x.shape))}: "
               f"bit-exact, kernel {tk:.4f} ms ({100 * b[0] / tk:.1f}% of "
@@ -1108,8 +861,7 @@ def check_stack_median(card):
 def k7_ops():
     """Float operations of csrc/lacosmic.cu: (dense per pixel and
     iteration, per pixel listed for the 7x7 median, per pixel listed for
-    the masked clean, dense per pixel and iteration of the first design,
-    which ran every stage at every pixel).  Stages 1 and 2 take their
+    the masked clean).  Stages 1 and 2 take their
     5x5 and 3x3 medians from K2's tile programs (the min/max of
     ``tile_median_ops`` over the tile's pixels); stage 1 adds the
     Laplacian and noise model, stage 2 sp and its gt test, then the two
@@ -1117,8 +869,7 @@ def k7_ops():
     sorted-column network (a column sort, one column a pixel, and the
     pruned merge) and adds f and the seed mask's second gt test, a
     listed clean the 25-value transposition sort, the blend and good
-    count, and the two 25-term rank picks.  The first design ran the
-    sorted-column network for every median."""
+    count, and the two 25-term rank picks."""
     from blackbox_tpu_torch.ops.filters import (MEDIAN_TILE,
                                                 comparator_cost,
                                                 sc_select_ops,
@@ -1139,9 +890,7 @@ def k7_ops():
     med7 = median(7) + 13                    # noise, f, gt(sp / f), c1
     clean = 2 * len(transposition_pairs(25)) + 25 * 6 + 25 * 2 * 6 + 16
     dense = tile(5) + tile(3) + rest1 + tile(5) + rest2 + grow
-    first = (median(5) + median(3) + rest1 + median(5) + rest2 + grow
-             + med7 + clean)
-    return float(dense), float(med7), float(clean), float(first)
+    return float(dense), float(med7), float(clean)
 
 
 def check_k7(card, args):
@@ -1150,8 +899,7 @@ def check_k7(card, args):
     and niter), bit-exact against its plain version at that full shape
     and timed there.  Its bound counts the operations these inputs need
     (the dense stages everywhere, the 7x7 median and the clean on the
-    pixels the kernel listed); the bound of the same call at the design
-    that ran every stage everywhere is printed beside it."""
+    pixels the kernel listed)."""
     from blackbox_tpu_torch.ops import lacosmic_fused as K7
     H, W = args[0].shape
     niter = args[6]
@@ -1166,26 +914,23 @@ def check_k7(card, args):
     ms = cuda_ms(lambda: K7.lacosmic_fused(*args))
     plain = cuda_ms(lambda: K7._lacosmic_plain(*args), reps=1)
     Hp, Wp = K7.padded_shape(H, W)
-    dense, med7, clean, first = k7_ops()
+    dense, med7, clean = k7_ops()
     n7 = sum(c[0] for c in listed)
     nc = sum(c[1] for c in listed)
     ops = niter * dense * Hp * Wp + med7 * n7 + clean * nc
     # f32 frame and bool inmask in, f32 clean and bool crmask out
-    bnd = bound(10.0 * H * W, f32_ops=ops)
-    old_bnd = bound(10.0 * H * W, f32_ops=niter * first * Hp * Wp)
+    bnd = least_ms(10.0 * H * W, f32_ops=ops)
     print(f"K7 lacosmic_fused {H}x{W} (padded {Hp}x{Wp}), {niter} iterations "
           f"({nflag} pixels flagged; listed for the 7x7 median / the clean "
-          f"by iteration: {listed}): bit-exact, kernel {ms:.3f} ms "
-          f"(previous design: {PREVIOUS_MS['K7']:.3f}), plain "
+          f"by iteration: {listed}): bit-exact, kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}, "
           f"{ops / (niter * Hp * Wp):.2f} ops/px/iteration: {dense:g} "
           f"dense, {med7:.0f} a listed 7x7 median, {clean:.0f} a listed "
-          f"clean); every stage everywhere: {first:.0f} ops/px/iteration, "
-          f"bound {old_bnd[0]:.3f} ms [{card}]")
+          f"clean) [{card}]")
     return dict(entry("lacosmic_fused", "blackbox_tpu_torch/csrc/lacosmic.cu",
                       "blackbox_tpu/pallas/lacosmic.py:120", err, ms, plain,
                       *bnd),
-                dense_bound_ms=old_bnd[0], listed=listed)
+                listed=listed)
 
 
 def check_k3(card, ctx, mesh, stdm):
@@ -1212,7 +957,7 @@ def check_k3(card, ctx, mesh, stdm):
     # every output pixel
     width = [int((b[:, 1] - b[:, 0] + 1).clamp(min=0).sum())
              for b in (upsample.weight_bands(Wy), upsample.weight_bands(Wx))]
-    bnd = bound(4.0 * (H * W + H * ny + W * nx + ny * nx),
+    bnd = least_ms(4.0 * (H * W + H * ny + W * nx + ny * nx),
                 f32_ops=2.0 * (width[0] * nx + width[1] * H))
     print(f"K3 upsample_mesh {ny}x{nx} -> {H}x{W} (two meshes): bit-exact, "
           f"kernel {ms:.3f} ms, plain {plain:.3f} ms, library multi_dot "
@@ -1242,71 +987,16 @@ def check_outputs(out, ctx, label):
                              f"{int(out['stats']['psf_nstars'])} stars")
 
 
-def check_tiny(reduce_ctx_for, card):
-    """The port on the card (kernels) against the port on the CPU (plain
-    versions) for one TINY frame: masks, labels and counts exact, float
-    planes to the f32 rounding of the overscan level."""
-    from blackbox_tpu_torch.core.geometry import TINY
-    from blackbox_tpu_torch.pipeline.reduce import make_reduce_fn
-    from blackbox_tpu_torch.synth.device import make_science_device
-
-    ctx = reduce_ctx_for(TINY)
-    gen = torch.Generator().manual_seed(3)
-    chan, osv, osh, _ = make_science_device(gen, TINY, nstars=40,
-                                            ncosmics=12, nsat=2)
-    C, ych, xch = TINY.chan_shape
-    mflat = (1.0 + 0.02 * torch.randn((C, ych, xch), generator=gen)).numpy()
-    xtalk = np.random.default_rng(0).uniform(-2e-4, 2e-4, (C, C)).astype(
-        np.float32)
-    cpu = make_reduce_fn(ctx, device="cpu")(chan, osv, osh, None, mflat,
-                                            None, xtalk)
-    gpu = make_reduce_fn(ctx)(chan, osv, osh, None, mflat, None, xtalk)
-    torch.cuda.synchronize()
-    if gpu["image"].device.type != "cuda":
-        raise AssertionError("TINY: make_reduce_fn did not run on the card")
-    check_outputs(gpu, ctx, "TINY")
-    for k in ("mask", "seg_nsources"):
-        if not torch.equal(cpu[k], gpu[k].cpu()):
-            raise AssertionError(f"TINY: {k} differs between card and CPU")
-    for k in ("nobjects", "ncosmics", "nsats", "nobj_sat"):
-        if int(cpu["stats"][k]) != int(gpu["stats"][k]):
-            raise AssertionError(f"TINY: {k} differs between card and CPU")
-    atol = 1e-3 + IMG_ATOL_REL * float(cpu["stats"]["biasm"].abs().max())
-    for k in ("image", "bkg", "bkg_std"):
-        d = float((cpu[k] - gpu[k].cpu()).abs().max())
-        if d > atol + 1e-5 * float(cpu[k].abs().max()):
-            raise AssertionError(f"TINY: {k} differs by {d} e-")
-    print(f"TINY frame on the card vs the CPU plain path: mask, labels and "
-          f"counts equal (nobjects {int(gpu['stats']['nobjects'])}), image "
-          f"max |diff| {float((cpu['image'] - gpu['image'].cpu()).abs().max()):.3g}"
-          f" e- [{card}]")
-
-
-def counters():
-    """The launch-counted wrappers, one per kernel, by JSON name."""
-    from blackbox_tpu_torch.ops import detection, fft, filters, labeling
-    from blackbox_tpu_torch.ops import lacosmic_fused, morphology, stats
-    from blackbox_tpu_torch.ops import upsample, windows
-    return {"label_propagate": labeling.label_propagate,
-            "median_filter": filters.median_filter,
-            "gather_slot_windows": windows.gather_slot_windows,
-            "fft_cols_split": fft.fft_cols_split,
-            "fused_detect": detection.fused_detect,
-            "lacosmic_fused": lacosmic_fused.lacosmic_fused,
-            "upsample_mesh": upsample.upsample_mesh,
-            "fill_holes": morphology.fill_holes,
-            "stack_median": stats.median}
-
-
-def zero_counts():
-    for c in counters().values():
-        c.launches = 0
+def launch_counts():
+    """Every kernel's launches since the last ``kernels.launches.clear()``,
+    by wrapper name."""
+    return {name: kernels.launches[name] for name in kernels.LAUNCHERS}
 
 
 def read_counts(label, card, needed):
     """The counts of the path just run; every kernel in ``needed`` must
     have been launched."""
-    counts = {name: c.launches for name, c in counters().items()}
+    counts = launch_counts()
     print(f"{label} launches {counts} [{card}]")
     for name in needed:
         if counts[name] <= 0:
@@ -1503,15 +1193,14 @@ def science_phase(ctx, card, mbias, mflat, xtalk):
     n0, b0 = gated()
     nframes += 1
     check_gated(b0, tx, ty, card)
-    from blackbox_tpu_torch.ops import detection
-    k5 = detection.fused_detect.launches
+    k5 = kernels.launches["fused_detect"]
     os.environ["BBTPU_PALLAS_DETECT"] = "1"
     try:
         n1, b1 = gated()
     finally:
         del os.environ["BBTPU_PALLAS_DETECT"]
     nframes += 1
-    if detection.fused_detect.launches < k5 + 2:
+    if kernels.launches["fused_detect"] < k5 + 2:
         raise AssertionError("BBTPU_PALLAS_DETECT=1 did not route detection "
                              "and transients through fused_detect")
     if not torch.equal(n0, n1):
@@ -1914,7 +1603,7 @@ def night_phase(ctx, card, root):
                            ref_catalog=query)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
+    kernels.launches.clear()
     res = []
     for f in files:
         res.append(pipe.process_file(f))
@@ -2150,7 +1839,7 @@ def coadd_phase(card, night):
     geom, ctx = pipe.geom, pipe.ctx
     H, W = geom.red_shape
     res7 = night["res"]
-    zero_counts()
+    kernels.launches.clear()
 
     # 1. a third visit: new noise and cosmics, dithered and rotated
     stars3, pointing3 = visit_stars(truth, *COADD_DITHER, COADD_ROT, 1.0,
@@ -2225,7 +1914,7 @@ def coadd_phase(card, night):
                     blocked_s=time.perf_counter() - t)
         return out
 
-    before = {k: c.launches for k, c in counters().items()}
+    before = launch_counts()
     B.load_ref_input, B.coadd_field_blocked = load, blocked
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2238,7 +1927,7 @@ def coadd_phase(card, night):
         B.load_ref_input, B.coadd_field_blocked = load0, blocked0
     t_build = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    moved = {k: c.launches - before[k] for k, c in counters().items()}
+    moved = {k: n - before[k] for k, n in launch_counts().items()}
     if status != "published":
         raise AssertionError(f"co-add: {status} {info}")
     _, h = read_rice(info["path"])
@@ -2684,7 +2373,6 @@ def vetnet_phase(card, night, unet, t4, root):
     from blackbox_tpu_torch.core import maskbits
     from blackbox_tpu_torch.io.rice import read_rice
     from blackbox_tpu_torch.models import vetnet
-    from blackbox_tpu_torch.ops import labeling
     from blackbox_tpu_torch.pipeline import driver
     from blackbox_tpu_torch.synth.device import make_science_device
 
@@ -2739,7 +2427,7 @@ def vetnet_phase(card, night, unet, t4, root):
             seen.append(args[1:])
             return score(*args)
 
-        before = labeling.label_propagate.launches
+        before = kernels.launches["label_propagate"]
         vetnet.score_transients = keep
         try:
             r = pipe.process_file(p5, force=force)
@@ -2749,7 +2437,7 @@ def vetnet_phase(card, night, unet, t4, root):
             raise AssertionError(f"fifth visit: {r.status} {r.error}")
         want = (1 + (sat_model_path is not None)
                 + (r.header.get("TRANS-P") is True))
-        k1.append(labeling.label_propagate.launches - before)
+        k1.append(kernels.launches["label_propagate"] - before)
         if k1[-1] != want:
             raise AssertionError(f"fifth visit: label_propagate {k1[-1]} "
                                  f"launches, {want} expected")
@@ -2862,7 +2550,7 @@ def check_k1_unet(card, prob):
     plain = cuda_ms(lambda: labeling._label_propagate_plain(lab, 64),
                     reps=1)
     nfg = int((lab < Hb * Wb + 2).sum())
-    bnd = bound(8.0 * Hb * Wb, i32_ops=8.0 * 64 * nfg)
+    bnd = least_ms(8.0 * Hb * Wb, i32_ops=8.0 * 64 * nfg)
     print(f"K1 label_propagate U-Net mask {Hb}x{Wb} 64 steps "
           f"({nfg / (Hb * Wb):.6f} of pixels set): bit-exact, kernel "
           f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd[0]:.3f} ms "
@@ -2990,10 +2678,10 @@ def multi_device_phase(ctx, card, frame, tiny, mbias, mflat, xtalk):
                                           trail=True, nsat=20)[:3])
     batch = tuple(torch.stack([f[k] for f in frames]) for k in range(3))
     bmesh = make_mesh(2, 1, devs[:2])
-    before = {n: c.launches for n, c in counters().items()}
+    before = launch_counts()
     outs, batch_ms = synced(lambda: make_batched_reduce(ctx, bmesh)(
         *batch, mbias, mflat, None, xtalk))
-    moved = {n: c.launches - before[n] for n, c in counters().items()}
+    moved = {k: n - before[k] for k, n in launch_counts().items()}
     if (moved["label_propagate"] != 2 or moved["median_filter"] <= 0
             or moved["gather_slot_windows"] <= 0):
         raise AssertionError(f"make_batched_reduce launches {moved}: K1 "
@@ -3075,17 +2763,16 @@ def lacosmic_phase(ctx, card, lac_input):
                ("dense rounds (windowed=False)",
                 dc.replace(base, windowed=False)),
                ("prescreen=True", dc.replace(base, prescreen=True))]
-    wanted = {n: c for n, c in counters().items()
-              if n in ("median_filter", "gather_slot_windows")}
+    wanted = ("median_filter", "gather_slot_windows")
     runs, calls = {}, None
     i = 0
     while i < len(configs):
         label, params = configs[i]
-        before = {n: c.launches for n, c in wanted.items()}
+        before = {n: kernels.launches[n] for n in wanted}
         with lacosmic_watch() as lac, k4_calls(i == 0) as k4:
             out = cosmics.lacosmic(data, inmask, rdn, params)
             torch.cuda.synchronize()
-        moved = {n: c.launches - before[n] for n, c in wanted.items()}
+        moved = {n: kernels.launches[n] - before[n] for n in wanted}
         runs[label] = (out, lac["passes"], moved)
         if i == 0:
             calls = k4
@@ -3100,7 +2787,7 @@ def lacosmic_phase(ctx, card, lac_input):
                                 base, max_cells=max(1, first["nact"] - 1))))
         i += 1
     counts = read_counts("windowed L.A.Cosmic (each run's first call)",
-                         card, tuple(wanted))
+                         card, wanted)
     dense = runs["dense rounds (windowed=False)"][0]
     for label, params in configs:
         out, passes, moved = runs[label]
@@ -3151,7 +2838,7 @@ def window_kernels(card, calls):
             imgs, y0, x0, size, n_active), busy=True))
         # 4 B a window pixel of each plane: read for the live slots,
         # written for every slot
-        bounds.append(bound(4.0 * nimg * size * size * (live + N))[0])
+        bounds.append(least_ms(4.0 * nimg * size * size * (live + N))[0])
         shapes.append([N, size, nimg, live])
     N, size, nimg, n_active, (imgs, y0, x0) = calls[0]
     plain = median_ms(lambda: windows._gather_plain(imgs, y0, x0, size,
@@ -3189,7 +2876,7 @@ def window_kernels(card, calls):
                       lambda: filters.median_filter(plane, 5)),
                   "window_plane_plain_ms": cuda_ms(
                       lambda: filters._median_plain(plane, 5, 176), reps=1),
-                  "window_plane_bound_ms": bound(
+                  "window_plane_bound_ms": least_ms(
                       8.0 * plane.numel(), f32_ops=per_px * plane.numel())[0]}
     print(f"K2 median_filter on {N} windows of {size}^2 stacked "
           f"(k = 3, 5, 7, each window edge-padded by k//2): bit-exact; "
@@ -3325,12 +3012,12 @@ def timing_line(label, r, card):
 def uncounted():
     """Launches made inside are a check's, not the path's: the counts
     are put back as they were."""
-    before = {n: c.launches for n, c in counters().items()}
+    before = kernels.launches.copy()
     try:
         yield
     finally:
-        for n, c in counters().items():
-            c.launches = before[n]
+        kernels.launches.clear()
+        kernels.launches.update(before)
 
 
 def resumed_catalog(pipe, cat_p, first, label, card):
@@ -3396,7 +3083,6 @@ def driver_knobs_phase(card, night):
     NP = night_parity()
     from blackbox_tpu_torch.core import maskbits
     from blackbox_tpu_torch.io.rice import read_rice
-    from blackbox_tpu_torch.ops import fft
     from blackbox_tpu_torch.pipeline import driver, masters
     from blackbox_tpu_torch.synth.device import make_science_device
     from blackbox_tpu_torch.utils.timing import timer
@@ -3467,7 +3153,7 @@ def driver_knobs_phase(card, night):
     src = night["files"][6]
     path = os.path.join(os.path.dirname(src), KNOB_VISIT)
     shutil.copy(src, path)
-    k6 = fft.fft_cols_split.launches
+    k6 = kernels.launches["fft_cols_split"]
     r = pipe.process_file(path)
     check_visit(r, "phase 12 visit", card,
                 keys=("S-P", "A-P", "PC-P", "NONLIN-P", "TRANS-P"))
@@ -3487,7 +3173,7 @@ def driver_knobs_phase(card, night):
                              f"= {bwant:.4f}")
     if not float(h["RADECOFF"]) < 5.0:
         raise AssertionError(f"RADECOFF {h['RADECOFF']}")
-    if fft.fft_cols_split.launches == k6:
+    if kernels.launches["fft_cols_split"] == k6:
         raise AssertionError("the visit's subtraction launched no K6")
     print(f"phase 12 visit: BPM-F {h['BPM-F']} ({len(bpm[0])} pixels BAD in "
           f"the published mask), NONLIN-P, S-BKG {b1} against the first "
@@ -3531,31 +3217,22 @@ def main() -> int:
     # phase 1: device and build
     card = card_label()
     print(card)
-    from blackbox_tpu_torch import kernels
     t0 = time.time()
-    load_previous_k4 = start_previous_k4()
-    kernels.lib()
-    prev = load_previous_k4()
-    print(f"built the CUDA kernels (and K4's previous design) in "
-          f"{time.time() - t0:.1f} s")
+    kernels.build()
+    print(f"built the CUDA kernels in {time.time() - t0:.1f} s")
 
     from blackbox_tpu_torch.core.geometry import MEERLICHT
     from blackbox_tpu_torch.ops.cosmics import LACosmicParams
     from blackbox_tpu_torch.ops.detection import DetectParams
     from blackbox_tpu_torch.pipeline.reduce import ReduceContext
 
-    def ctx_for(geom):
-        return ReduceContext.from_defaults(
-            geom, "ML1", lac_params=LACosmicParams(strip_rows=176),
-            det_params=DetectParams(max_sources=20000, label_iters=32))
-
-    ctx = ctx_for(MEERLICHT)
+    ctx = ReduceContext.from_defaults(
+        MEERLICHT, "ML1", lac_params=LACosmicParams(strip_rows=176),
+        det_params=DetectParams(max_sources=20000, label_iters=32))
 
     # phase 2: kernels against their plain versions
-    results = check_kernels(card, prev)
+    results = check_kernels(card)
     torch.cuda.empty_cache()
-
-    check_tiny(ctx_for, card)
 
     C, ych, xch = MEERLICHT.chan_shape
     mgen = torch.Generator(device="cuda").manual_seed(99)
@@ -3566,7 +3243,7 @@ def main() -> int:
         np.float32)
 
     # phase 3: raw -> catalog
-    zero_counts()
+    kernels.launches.clear()
     frame, lac_input = reduce_phase(ctx, card, mbias, mflat, xtalk)
     c3 = read_counts("raw -> catalog", card, ("label_propagate",
                                               "median_filter",
@@ -3580,12 +3257,9 @@ def main() -> int:
         raise AssertionError(f"fill_holes: {c3['fill_holes']} launches "
                              f"for {len(SEEDS)} frames")
     torch.cuda.empty_cache()
-    k4 = next(r for r in results if r["name"] == "gather_slot_windows")
-    k4.update(k4_path_replay(ctx, card, mbias, mflat, xtalk, prev))
-    torch.cuda.empty_cache()
 
     # phase 4: raw -> transient catalog
-    zero_counts()
+    kernels.launches.clear()
     nframes = science_phase(ctx, card, mbias, mflat, xtalk)
     c4 = read_counts("raw -> transient catalog", card,
                      ("label_propagate", "median_filter",
@@ -3604,7 +3278,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 5: calibration night, then raw -> catalog through K7, and K3
-    zero_counts()
+    kernels.launches.clear()
     nk7, first = calib_phase(ctx, card, xtalk)
     c5 = read_counts("calibration night + K7 reduction + K3 planes", card,
                      ("label_propagate", "gather_slot_windows",
@@ -3640,7 +3314,7 @@ def main() -> int:
         # phase 9: the networks and segment mode at full width, then a
         # fifth visit through the driver with both networks
         t9 = time.time()
-        zero_counts()
+        kernels.launches.clear()
         unet, prob = unet_phase(card, *frame)
         segment_phase(card, ctx, *frame)
         torch.cuda.empty_cache()
@@ -3667,7 +3341,7 @@ def main() -> int:
         # counted
         torch.cuda.empty_cache()
         t10 = time.time()
-        zero_counts()
+        kernels.launches.clear()
         multi_device_phase(ctx, card, frame, tiny, mbias, mflat, xtalk)
         del frame, tiny
         c10 = read_counts("multi-device on one card", card,
@@ -3681,7 +3355,7 @@ def main() -> int:
         # shapes
         torch.cuda.empty_cache()
         t11 = time.time()
-        zero_counts()
+        kernels.launches.clear()
         c11, lac_moved, lac_k4 = lacosmic_phase(ctx, card, lac_input)
         del lac_input
         k4_window, k2_window, werr = window_kernels(card, lac_k4)
@@ -3693,7 +3367,7 @@ def main() -> int:
         # their launches counted
         torch.cuda.empty_cache()
         t12 = time.time()
-        zero_counts()
+        kernels.launches.clear()
         knob_tiny_phase(card, os.path.join(root, "knobs"))
         driver_knobs_phase(card, night)
         del night

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from blackbox_tpu_torch import kernels  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 
@@ -47,9 +49,9 @@ def test_median_kernel(dev, shape, k):
     img = 100 + 20 * torch.randn(shape, generator=g, device=dev)
     img[shape[0] // 2, shape[1] // 2] = float("nan")
     img[0, -1] = 1e30
-    before = filters.median_filter.launches
+    before = kernels.launches["median_filter"]
     _same(filters.median_filter(img, k), filters._median_plain(img, k, 64))
-    assert filters.median_filter.launches == before + 1
+    assert kernels.launches["median_filter"] == before + 1
 
 
 @pytest.mark.parametrize("shape", [(64, 128), (257, 1031), (300, 1024)])
@@ -129,10 +131,10 @@ def test_label_kernel_cases(dev, kind, iters, shape):
     idx = torch.arange(1, H * W + 1, dtype=torch.int32,
                        device=dev).reshape(H, W)
     lab0 = torch.where(mask, idx, H * W + 2)
-    before = labeling.label_propagate.launches
+    before = kernels.launches["label_propagate"]
     _same(labeling.label_propagate(lab0, iters),
           labeling._label_propagate_plain(lab0, iters))
-    assert labeling.label_propagate.launches == before + 1
+    assert kernels.launches["label_propagate"] == before + 1
 
 
 @pytest.mark.parametrize("size", [1, 32, 96])
@@ -182,10 +184,10 @@ def test_gather_kernel_edge_cases(dev, size, nimg, nact):
     n_active = {"0": torch.tensor(0, device=dev),
                 "1": torch.tensor(1, device=dev),
                 "N": torch.tensor(N, device=dev), "none": None}[nact]
-    before = windows.gather_slot_windows.launches
+    before = kernels.launches["gather_slot_windows"]
     got = windows.gather_slot_windows(imgs, y0, x0, size,
                                       n_active=n_active)
-    assert windows.gather_slot_windows.launches == before + 1
+    assert kernels.launches["gather_slot_windows"] == before + 1
     ref = windows._gather_plain(imgs, y0, x0, size, n_active)
     for a, b in zip(got, ref):
         _same_bits(a, b)
@@ -232,12 +234,12 @@ def test_windowed_lacosmic_on_card(dev, kw):
     p = cosmics.LACosmicParams(sigclip=6.0, objlim=2.0, strip_rows=66,
                                **kw)
     cpu = cosmics.lacosmic(img, None, 6.0, p)
-    k2 = filters.median_filter.launches
-    k4 = windows.gather_slot_windows.launches
+    k2 = kernels.launches["median_filter"]
+    k4 = kernels.launches["gather_slot_windows"]
     gpu = cosmics.lacosmic(img.to(dev), None, 6.0, p)
     torch.cuda.synchronize()
-    assert filters.median_filter.launches > k2
-    assert (windows.gather_slot_windows.launches > k4) == (
+    assert kernels.launches["median_filter"] > k2
+    assert (kernels.launches["gather_slot_windows"] > k4) == (
         "max_cells" not in kw)
     assert int(cpu[2][1]) > 0
     for a, b in zip(gpu, cpu):
@@ -267,9 +269,9 @@ def test_window_median_stacked_on_card(dev, k):
     fr = cosmics._Frames(torch.tensor([-24, 0, 40, 100, 7, 300], device=dev),
                          torch.tensor([-24, 17, 0, 250, 3, 9], device=dev),
                          S, 380, 350)
-    before = filters.median_filter.launches
+    before = kernels.launches["median_filter"]
     got = cosmics._win_median(a, k, fr.bk(pk), 64)
-    assert filters.median_filter.launches == before + 1
+    assert kernels.launches["median_filter"] == before + 1
     for i in range(N):
         med = filters._median_plain(
             cosmics._edge_pad(a[i], pk, pk, pk, pk), k, 64)[pk:pk + S,
@@ -297,31 +299,48 @@ def test_gather_kernel_lacosmic_windows(dev):
 
 
 def test_reduce_tiny_card_matches_cpu(dev):
-    """The whole slice on a TINY frame: kernels on the card against the
-    plain versions on the CPU (masks and counts exact)."""
+    """The whole slice on TINY frames: kernels on the card against the
+    plain versions on the CPU (masks and counts exact; float planes to
+    the f32 rounding of the overscan level).  Two frames: the default
+    context without masters, and chip_smoke.py's production context
+    with a master flat."""
     import numpy as np
     from blackbox_tpu_torch.core.geometry import TINY
+    from blackbox_tpu_torch.ops.cosmics import LACosmicParams
+    from blackbox_tpu_torch.ops.detection import DetectParams
     from blackbox_tpu_torch.pipeline.reduce import (ReduceContext,
                                                     make_reduce_fn)
     from blackbox_tpu_torch.synth.device import make_science_device
-    ctx = ReduceContext.from_defaults(TINY)
-    gen = torch.Generator().manual_seed(5)
-    chan, osv, osh, _ = make_science_device(gen, TINY, nstars=40,
-                                            ncosmics=12, nsat=2)
+    production = ReduceContext.from_defaults(
+        TINY, "ML1", lac_params=LACosmicParams(strip_rows=176),
+        det_params=DetectParams(max_sources=20000, label_iters=32))
     xt = np.random.default_rng(0).uniform(-2e-4, 2e-4, (16, 16)).astype(
         np.float32)
-    cpu = make_reduce_fn(ctx, device="cpu")(chan, osv, osh, None, None,
-                                            None, xt)
-    gpu = make_reduce_fn(ctx)(chan, osv, osh, None, None, None, xt)
-    assert gpu["image"].device.type == "cuda"
-    assert torch.equal(cpu["mask"], gpu["mask"].cpu())
-    assert torch.equal(cpu["seg_nsources"], gpu["seg_nsources"].cpu())
-    for k in ("nobjects", "ncosmics", "nsats", "nobj_sat"):
-        assert int(cpu["stats"][k]) == int(gpu["stats"][k]), k
-    atol = 1e-3 + 1e-5 * float(cpu["stats"]["biasm"].abs().max())
-    torch.testing.assert_close(gpu["image"].cpu(), cpu["image"], rtol=1e-5,
-                               atol=atol)
-    assert int(cpu["stats"]["psf_nstars"]) == int(gpu["stats"]["psf_nstars"])
+    for ctx, seed, flat in ((ReduceContext.from_defaults(TINY), 5, False),
+                            (production, 3, True)):
+        gen = torch.Generator().manual_seed(seed)
+        chan, osv, osh, _ = make_science_device(gen, TINY, nstars=40,
+                                                ncosmics=12, nsat=2)
+        mflat = None
+        if flat:
+            mflat = (1.0 + 0.02 * torch.randn(TINY.chan_shape,
+                                              generator=gen)).numpy()
+        cpu = make_reduce_fn(ctx, device="cpu")(chan, osv, osh, None, mflat,
+                                                None, xt)
+        gpu = make_reduce_fn(ctx)(chan, osv, osh, None, mflat, None, xt)
+        assert gpu["image"].device.type == "cuda"
+        assert torch.equal(cpu["mask"], gpu["mask"].cpu())
+        assert torch.equal(cpu["seg_nsources"], gpu["seg_nsources"].cpu())
+        for k in ("nobjects", "ncosmics", "nsats", "nobj_sat"):
+            assert int(cpu["stats"][k]) == int(gpu["stats"][k]), k
+        atol = 1e-3 + 1e-5 * float(cpu["stats"]["biasm"].abs().max())
+        torch.testing.assert_close(gpu["image"].cpu(), cpu["image"],
+                                   rtol=1e-5, atol=atol)
+        for k in ("bkg", "bkg_std"):
+            d = float((cpu[k] - gpu[k].cpu()).abs().max())
+            assert d <= atol + 1e-5 * float(cpu[k].abs().max()), (k, d)
+        assert (int(cpu["stats"]["psf_nstars"])
+                == int(gpu["stats"]["psf_nstars"]))
 
 
 @pytest.mark.parametrize("N", [96, 160, 168, 352, 384, 1024, 2688, 10752])
@@ -335,9 +354,9 @@ def test_fft_kernel(dev, N, inverse):
         xr = torch.randn((N, L), generator=g, device=dev)
         xi = torch.randn((N, L), generator=g, device=dev)
         scale = 1.0 / N if inverse else 1.0
-        before = fft.fft_cols_split.launches
+        before = kernels.launches["fft_cols_split"]
         got = fft.fft_cols_split(xr, xi, inverse, scale)
-        assert fft.fft_cols_split.launches == before + 1
+        assert kernels.launches["fft_cols_split"] == before + 1
         ref = fft._fft_cols_plain(xr, xi, inverse, scale)
         _same(got[0], ref[0])
         _same(got[1], ref[1])
@@ -410,10 +429,10 @@ def test_detect_kernel(dev, shape, form):
     args = {"detect": (img, std, excl, taps, 1.5, 32, False),
             "transient": (3.0 * img, None, excl, None, 6.0, 48, True),
             "bare": (img, None, None, taps, 2.0, 24, False)}[form]
-    before = detection.fused_detect.launches
+    before = kernels.launches["fused_detect"]
     seg, n = detection.fused_detect(*args[:5], iters=args[5],
                                     absval=args[6])
-    assert detection.fused_detect.launches == before + 1
+    assert kernels.launches["fused_detect"] == before + 1
     seg_p, n_p = detection._fused_detect_plain(*args)
     _same(seg, seg_p)
     _same(n, n_p)
@@ -484,10 +503,10 @@ def test_detect_kernel_cases(dev, kind, iters, align, fwhm):
     for args in ((img, std, excl, taps, 1.5, iters, False),
                  (3.0 * img if align == 16 else _misaligned(3.0 * img),
                   None, excl, None, 6.0, iters, True)):
-        before = detection.fused_detect.launches
+        before = kernels.launches["fused_detect"]
         seg, n = detection.fused_detect(*args[:5], iters=iters,
                                         absval=args[6])
-        assert detection.fused_detect.launches == before + 1
+        assert kernels.launches["fused_detect"] == before + 1
         seg_p, n_p = detection._fused_detect_plain(*args)
         _same(seg, seg_p)
         _same(n, n_p)
@@ -503,9 +522,9 @@ def test_detect_segments_switch(dev, monkeypatch):
     monkeypatch.delenv("BBTPU_PALLAS_DETECT", raising=False)
     seg0, n0 = detection.detect_segments(img, std, excl, p)
     monkeypatch.setenv("BBTPU_PALLAS_DETECT", "1")
-    before = detection.fused_detect.launches
+    before = kernels.launches["fused_detect"]
     seg1, n1 = detection.detect_segments(img, std, excl, p)
-    assert detection.fused_detect.launches == before + 1
+    assert kernels.launches["fused_detect"] == before + 1
     _same(seg1, seg0)
     assert int(n1) == int(n0)
 
@@ -542,7 +561,7 @@ def test_science_tiny_card_matches_cpu(dev):
         ref = front(chan, osv, osh, None, None, None)
         roll = lambda a: torch.roll(a, (3, -2), (0, 1))  # noqa: E731
         cat = ref["cat"]
-        before = fft.fft_cols_split.launches
+        before = kernels.launches["fft_cols_split"]
         b = back(ref["sub"], ref["bkg_std"], ref["mask"], ref["psf_centre"],
                  cat, ref["stats"]["bkg_std"], roll(ref["sub"] * fr),
                  roll(ref["bkg_std"] * fr), roll(ref["mask"]), (sy, sx),
@@ -553,7 +572,7 @@ def test_science_tiny_card_matches_cpu(dev):
             assert b["D"].device.type == "cuda"
             # five 2-D transforms: at 132 rows the squared kernels take
             # the full-frame path (kernel_stamp 256 exceeds the frame)
-            assert fft.fft_cols_split.launches == before + 10
+            assert kernels.launches["fft_cols_split"] == before + 10
         outs[device] = b
     cpu, gpu = outs["cpu"], outs["cuda"]
     for k in ("D", "Fpsf"):
@@ -612,9 +631,9 @@ def test_lacosmic_kernel(dev, shape, thresholds):
           if thresholds == "production"
           else dict(sigclip=0.0, sigfrac=0.0, objlim=0.0))
     rdn = torch.tensor(6.0, device=dev)
-    before = K7.lacosmic_fused.launches
+    before = kernels.launches["lacosmic_fused"]
     got = K7.lacosmic_fused(img, inm, rdn, niter=3, **kw)
-    assert K7.lacosmic_fused.launches == before + 3
+    assert kernels.launches["lacosmic_fused"] == before + 3
     want = K7._lacosmic_plain(img, inm, rdn, niter=3, **kw)
     for a, b in zip(got, want):
         _same(a, b)
@@ -763,9 +782,9 @@ def test_upsample_kernel(dev, shape, box, nmesh):
                    for _ in range(nmesh))
     Wy = torch.tensor(_catmull_rom_matrix(H, ny, box), device=dev)
     Wx = torch.tensor(_catmull_rom_matrix(W, nx, box), device=dev)
-    before = upsample.upsample_mesh.launches
+    before = kernels.launches["upsample_mesh"]
     got = upsample.upsample_mesh(meshes, Wy, Wx, (H, W))
-    assert upsample.upsample_mesh.launches == before + 1
+    assert kernels.launches["upsample_mesh"] == before + 1
     want = upsample._upsample_plain(meshes, Wy, Wx, (H, W))
     for a, b, m in zip(got, want, meshes):
         _same(a, b)
@@ -1174,9 +1193,9 @@ def test_segment_trails_card_matches_cpu(dev):
         prob.double()).reshape(-1), 0.95))
     prob = trailnet.trail_probability(params, img)
     band = (prob - 0.5).abs() <= 1e-4
-    before = labeling.label_propagate.launches
+    before = kernels.launches["label_propagate"]
     m_card, n_card = trailnet.segment_trails(params, img.to(dev))
-    assert labeling.label_propagate.launches == before + 1
+    assert kernels.launches["label_propagate"] == before + 1
     m_cpu, n_cpu = trailnet.segment_trails(params, img)
     assert abs(int(n_card) - int(n_cpu)) <= int(band.sum())
     inband = band.repeat_interleave(4, 0).repeat_interleave(4, 1)
@@ -1218,9 +1237,9 @@ def test_count_components_on_card(dev, frac, iters):
     from blackbox_tpu_torch.ops import labeling
     g = torch.Generator().manual_seed(int(frac * 100))
     m = torch.rand((301, 517), generator=g) < frac
-    before = labeling.label_propagate.launches
+    before = kernels.launches["label_propagate"]
     got = labeling.count_components(m.to(dev), iters=iters)
-    assert labeling.label_propagate.launches == before + 1
+    assert kernels.launches["label_propagate"] == before + 1
     assert got.device.type == "cuda"
     want = labeling.count_components(m, iters=iters)
     assert int(got) == int(want)
@@ -1243,9 +1262,9 @@ def _fill_holes_same(m, iterations):
     """K8 on the card against the plain hole fill of the same mask on
     the CPU, bit for bit; one launch."""
     from blackbox_tpu_torch.ops import morphology as M
-    before = M.fill_holes.launches
+    before = kernels.launches["fill_holes"]
     got = M.fill_holes(m, iterations)
-    assert M.fill_holes.launches == before + 1
+    assert kernels.launches["fill_holes"] == before + 1
     assert got.device == m.device
     want = M._fill_holes(m.cpu(), iterations)
     _same(got.cpu(), want)
@@ -1327,9 +1346,9 @@ def _stack_median_same(x, axis=0):
     """K9 through ``stats.median`` against the sort route on the card,
     bit for bit, NaN positions included; one launch."""
     from blackbox_tpu_torch.ops import stats
-    before = stats.median.launches
+    before = kernels.launches["stack_median"]
     got = stats.median(x, axis=axis)
-    assert stats.median.launches == before + 1
+    assert kernels.launches["stack_median"] == before + 1
     want = stats._median_sort(x, axis)
     _same_bits(got, want)
     return got
@@ -1414,9 +1433,9 @@ def test_stack_median_unrouted_calls_sort(dev):
              (torch.randn((33, 300), generator=g, device=dev), 0),
              (x.double(), 0)]
     for t, axis in cases:
-        before = stats.median.launches
+        before = kernels.launches["stack_median"]
         got = stats.median(t, axis=axis)
-        assert stats.median.launches == before
+        assert kernels.launches["stack_median"] == before
         _same(got, stats._median_sort(t, axis))
 
 
@@ -1438,10 +1457,10 @@ def test_stack_median_build_master_on_card(dev, kind, n):
     exptimes = torch.linspace(30.0, 90.0, n) if kind == "dark" else None
     want_m, want_s = ref.build_master(kind, list(frames), ref_geometry.TINY,
                                       exptimes=exptimes)
-    before = stats.median.launches
+    before = kernels.launches["stack_median"]
     got_m, got_s = masters.build_master(kind, list(frames), TINY,
                                         exptimes=exptimes)
-    assert stats.median.launches == before + 1
+    assert kernels.launches["stack_median"] == before + 1
     _same_bits(got_m, want_m)
     assert bool(torch.isnan(got_m[NAN_AT]))
     assert _stats_close(got_s, want_s)

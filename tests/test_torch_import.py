@@ -483,6 +483,38 @@ def test_launcher_signatures_match_sources():
     assert set(declared) == set(kernels._SIGNATURES)
     for name, argtypes in kernels._SIGNATURES.items():
         assert tuple(kind[a] for a in argtypes) == declared[name], name
+    assert sorted(kernels.LAUNCHERS.values()) == sorted(kernels._SIGNATURES)
+
+
+@pytest.mark.parametrize("case", ["cpu", "two devices", "strided"])
+def test_launch_rejects_operands_before_loading(case, monkeypatch):
+    """kernels.launch refuses a CPU operand, operands on two devices and
+    a non-contiguous operand with a ValueError, without building or
+    loading the library and without counting the call."""
+    import types
+
+    import torch
+    from blackbox_tpu_torch import kernels
+
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(kernels, "_lib", no_library)
+
+    def card(index, contiguous=True):
+        # a stand-in for a CUDA tensor: launch reads only these two
+        return types.SimpleNamespace(device=torch.device("cuda", index),
+                                     is_contiguous=lambda: contiguous)
+
+    operands, message = {
+        "cpu": ((card(0), torch.zeros(4)), "CUDA tensors on one device"),
+        "two devices": ((card(0), card(1)), "CUDA tensors on one device"),
+        "strided": ((card(0), card(0, contiguous=False)), "contiguous"),
+    }[case]
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match=message):
+        kernels.launch("fill_holes", operands, 0, 0, 0, 1, 1, 1, 1)
+    assert dict(kernels.launches) == before
 
 
 def _source(pkg, dotted):

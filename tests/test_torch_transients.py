@@ -27,6 +27,7 @@ from test_pallas_detect import _scene  # noqa: E402
 from blackbox_tpu.ops import transients as jtr  # noqa: E402
 from blackbox_tpu.ops.detection import gaussian_taps  # noqa: E402
 from blackbox_tpu.pallas.detect import fused_detect_pallas  # noqa: E402
+from blackbox_tpu_torch import kernels  # noqa: E402
 from blackbox_tpu_torch.ops import detection as tdet  # noqa: E402
 from blackbox_tpu_torch.ops import transients as ttr  # noqa: E402
 
@@ -64,11 +65,11 @@ def test_fused_detect_matches_pallas(form):
         jnp.asarray(img), None if std is None else jnp.asarray(std),
         jnp.asarray(excl), taps, nsigma, iters=iters, absval=absval,
         interpret=True)
-    before = tdet.fused_detect.launches
+    before = kernels.launches["fused_detect"]
     seg, cnt = tdet.fused_detect(t(img), None if std is None else t(std),
                                  t(excl), taps, nsigma, iters=iters,
                                  absval=absval)
-    assert tdet.fused_detect.launches == before        # plain on the CPU
+    assert kernels.launches["fused_detect"] == before        # plain on the CPU
     assert int(n_w) > 0
     assert_exact(cnt, n_w, "n")
     assert_exact(seg, seg_w, "seg")
