@@ -32,7 +32,8 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
 SOURCES = ("labelprop.cu", "medians.cu", "gather.cu", "fft.cu", "detect.cu",
-           "lacosmic.cu", "upsample.cu", "fillholes.cu", "stackmedian.cu")
+           "lacosmic.cu", "upsample.cu", "fillholes.cu", "stackmedian.cu",
+           "warp.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -68,6 +69,11 @@ _SIGNATURES = {
     "bbt_fill_holes": (_P, _P, _P, _I, _I, _I, _I, _P),
     # (in, out, N, M, stream)
     "bbt_stack_median": (_P, _P, _I, _I, _P),
+    # (srcs, dsts, fill pointers, words (host), nn, ys, xs, nx, step,
+    #  1 / step, H, W, Hs, strips (host), nstrips, taps (host), kmin, nk,
+    #  a, 1 / a, axis, stream)
+    "bbt_warp_pass": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _F, _I, _I, _I,
+                      _P, _I, _P, _I, _I, _I, _F, _I, _P),
 }
 
 # each wrapper's name (the key of its count in ``launches``) and the
@@ -82,6 +88,7 @@ LAUNCHERS = {
     "upsample_mesh": "bbt_upsample_mesh",
     "fill_holes": "bbt_fill_holes",
     "stack_median": "bbt_stack_median",
+    "warp_pass": "bbt_warp_pass",
 }
 
 # launcher calls by wrapper name, since import or the last ``clear()``
@@ -188,3 +195,14 @@ def host_floats(values) -> ctypes.Array:
     """A host float32 array of ``values``, for a launcher argument that
     the launcher copies into its kernel's parameters."""
     return (ctypes.c_float * len(values))(*values)
+
+
+def host_ints(values) -> ctypes.Array:
+    """A host int32 array of ``values``, as :func:`host_floats`."""
+    return (ctypes.c_int * len(values))(*values)
+
+
+def host_pointers(values) -> ctypes.Array:
+    """A host array of device pointers (ints, None for a null one), as
+    :func:`host_floats`."""
+    return (ctypes.c_void_p * len(values))(*values)

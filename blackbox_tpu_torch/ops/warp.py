@@ -16,7 +16,9 @@ spatially varying weights (:func:`warp_shift2pass`):
     pass 2 (cols):  out(y, x) = sum_s V[y, x+s] * Lx(dxs(y,x) - s)
 
 with s over the static integer ranges of :func:`grid_shift_ranges`;
-every term is one streaming elementwise pass.  The coordinate planes
+in the plain route every term is one streaming elementwise pass, and
+on the card the kernel K10 (``csrc/warp.cu``) runs each pass as one
+launch, bit for bit the plain route there.  The coordinate planes
 come from coarse nodes: by two small matmuls (:func:`upsample_grid`)
 or by repeat + lerp at a static node spacing (:func:`upsample_lerp`).
 Wilder mappings take the exact gather form: :func:`lanczos_resample`
@@ -32,6 +34,8 @@ import math
 
 import numpy as np
 import torch
+
+from blackbox_tpu_torch.utils.timing import annotate
 
 
 def remap_grid(wcs_src, wcs_dst, shape_dst, step: int = 32,
@@ -313,7 +317,27 @@ def warp_shift2pass(srcs, modes, fills, grid, ranges, a: int = 3):
     second-order approximation (~0.01 px for a 3-arcmin rotation at
     10.5k²).  Edge taps replicate the border; out-of-frame samples take
     the fill, with the frame bounds taken from the SOURCE's shape.
+
+    On a CUDA device this runs the kernel K10 (``csrc/warp.cu``), one
+    launch a pass, counted in ``kernels.launches["warp_pass"]``, bit for
+    bit the plain route there.  It takes one float32 Lanczos plane and
+    at most two nearest planes, float32 or integers of at most two
+    bytes; other dtypes, and the CPU, take the plain route
+    (:func:`shift2pass_route`); a call on the card that K10 cannot take
+    otherwise raises ValueError.  The route goes on the innermost open
+    ``warp`` span, as ``route``.
     """
+    plan = _k10_call(srcs, modes, grid, ranges, a)
+    annotate("warp", route="plain" if plan is None else "kernel")
+    if plan is None:
+        return _shift2pass_plain(srcs, modes, fills, grid, ranges, a)
+    return _shift2pass_cuda(srcs, fills, grid, plan, int(a))
+
+
+def _shift2pass_plain(srcs, modes, fills, grid, ranges, a: int = 3):
+    """The plain route of :func:`warp_shift2pass`, on any device (K10's
+    plain version): each pass a fan of full-strip elementwise ops over
+    the strips' shifts."""
     dev = srcs[0].device
     if len(grid) == 4:
         sy, sx, Wy, Wx = grid
@@ -441,6 +465,195 @@ def warp_shift2pass(srcs, modes, fills, grid, ranges, a: int = 3):
             fill = torch.as_tensor(fills[i], device=dev).to(dt)
             results[i] = torch.where(inb, oi.to(dt), fill)
     return tuple(results[i] for i in range(len(srcs)))
+
+
+# K10's tables (csrc/warp.cu): strips a pass, and shift factors a pass
+K10_STRIPS = 64
+K10_SHIFTS = 192
+
+
+def k10_strips(r, n_perp: int):
+    """An axis's shift ranges ``r`` (one (r0, r1) pair or per-strip
+    pairs) as the strips K10 reads: (start, r0, r1, c0) a strip, split as
+    ``pass_axis`` slices an axis of ``n_perp`` (start ``b * n_perp //
+    B``) and ``c0`` the range's centre as ``pass_strip`` takes it."""
+    pairs = [r] if isinstance(r[0], (int, np.integer)) else r
+    B = len(pairs)
+    return [((b * n_perp) // B, int(r0), int(r1), (int(r0) + int(r1)) // 2)
+            for b, (r0, r1) in enumerate(pairs)]
+
+
+def k10_taps(strips, a: int = 3):
+    """(kmin, factors): the per-shift factors of ``pass_strip``'s
+    Lanczos branch, ``a * sgn``, ``cos(pi k / a)`` and ``sin(pi k / a)``
+    of each k = s - c0 from the strips' least to their largest, three a
+    shift (the launcher rounds them to float32, as PyTorch rounds a
+    Python scalar)."""
+    live = [(r0 - c0, r1 - c0) for _, r0, r1, c0 in strips if r0 <= r1]
+    kmin = min((lo for lo, _ in live), default=0)
+    kmax = max((hi for _, hi in live), default=-1)
+    taps = []
+    for k in range(kmin, kmax + 1):
+        taps += [a * float((-1.0) ** (k % 2)), math.cos(math.pi * k / a),
+                 math.sin(math.pi * k / a)]
+    return kmin, taps
+
+
+def _k10_dtype(t, mode: str) -> bool:
+    # a float32 Lanczos plane; a float32 nearest plane or an integer one
+    # of at most two bytes (the plain route widens it to float32 exactly)
+    if mode == "lanczos" or t.is_floating_point():
+        return t.dtype == torch.float32
+    return not t.is_complex() and t.element_size() <= 2
+
+
+def _k10_pass(r, n_perp: int, a: int):
+    """(strips, kmin, factors) of one pass, or ValueError beyond K10's
+    tables."""
+    strips = k10_strips(r, n_perp)
+    if len(strips) > K10_STRIPS:
+        raise ValueError(f"K10 takes at most {K10_STRIPS} strips a pass, "
+                         f"not {len(strips)}")
+    kmin, taps = k10_taps(strips, a)
+    if len(taps) > 3 * K10_SHIFTS:
+        raise ValueError(
+            f"K10 holds the factors of {K10_SHIFTS} shifts a pass about "
+            f"the strips' centres, and these ranges need {len(taps) // 3} "
+            f"(a strip's range is at most {K10_SHIFTS - 1} shifts wide)")
+    return strips, kmin, taps
+
+
+def _k10_plan(srcs, modes, grid, ranges, a: int = 3):
+    """What K10 needs of a call, wherever its tensors lie: (the planes'
+    order, Lanczos first; the output rows; (strips, kmin, factors) of
+    each pass).  None where a dtype leaves the call to the plain route: a
+    plane K10 does not move, or (ys, xs) planes other than float32.
+    ValueError for a call it cannot take otherwise: not one Lanczos plane
+    and at most two nearest ones, sources of different shapes or
+    devices, a grid that does not cover them, or ranges beyond its
+    tables."""
+    if not all(_k10_dtype(s, m) for s, m in zip(srcs, modes)):
+        return None
+    if len(grid) == 2 and any(isinstance(g, torch.Tensor)
+                              and g.dtype != torch.float32 for g in grid):
+        return None
+    unknown = set(modes) - {"lanczos", "nearest"}
+    if unknown:
+        raise ValueError(f"unknown resample mode(s) {unknown}")
+    if (len(modes) != len(srcs) or modes.count("lanczos") != 1
+            or modes.count("nearest") > 2):
+        raise ValueError(f"K10 takes one Lanczos plane and at most two "
+                         f"nearest planes, not {tuple(modes)}")
+    s0 = srcs[0]
+    if s0.dim() != 2 or not all(s.shape == s0.shape and s.device == s0.device
+                                for s in srcs):
+        raise ValueError("K10 takes 2-D sources of one shape on one device")
+    Hs, W = s0.shape
+    if len(grid) == 4:
+        H = grid[2].shape[0]
+        width = grid[3].shape[0]
+    elif len(grid) == 3:
+        ny, nx = np.shape(grid[0])
+        step = int(grid[2])
+        if (np.shape(grid[1]) != (ny, nx) or step < 1
+                or (ny - 1) * step < Hs or (nx - 1) * step < W):
+            raise ValueError("the coarse nodes do not cover the sources")
+        H, width = Hs, W
+    else:
+        ys, xs = grid
+        if not all(isinstance(g, torch.Tensor) and g.dim() == 2
+                   and g.shape == ys.shape and g.device == s0.device
+                   for g in grid):
+            raise ValueError("(ys, xs) are two 2-D planes of one shape on "
+                             "the sources' device")
+        H, width = ys.shape
+    if width != W or H < 1 or int(a) < 1:
+        raise ValueError("the grid's width is not the sources'")
+    order = ([i for i, m in enumerate(modes) if m == "lanczos"]
+             + [i for i, m in enumerate(modes) if m == "nearest"])
+    return order, H, (_k10_pass(ranges[0], W, int(a)),
+                      _k10_pass(ranges[1], H, int(a)))
+
+
+def _k10_call(srcs, modes, grid, ranges, a: int):
+    """K10's plan for a call on the card; None for the plain route."""
+    if srcs[0].device.type != "cuda":
+        return None
+    return _k10_plan(srcs, modes, grid, ranges, a)
+
+
+def shift2pass_route(srcs, modes, grid, ranges, a: int = 3) -> str:
+    """Which route :func:`warp_shift2pass` takes: ``"kernel"`` (K10) for
+    sources on a CUDA device in the dtypes K10 moves, ``"plain"`` for
+    the CPU and other dtypes.  A call on the card that K10 cannot take
+    otherwise raises ValueError (:func:`_k10_plan`)."""
+    return "plain" if _k10_call(srcs, modes, grid, ranges, a) is None \
+        else "kernel"
+
+
+def _fill_word(fill, dtype, dev):
+    """The fill as the plain route converts it to ``dtype``: (a device
+    scalar the kernel reads, or None; its bits as a signed 32-bit int).
+    A CUDA tensor stays on the card (no host read); anything else is
+    converted on the host."""
+    if isinstance(fill, torch.Tensor) and fill.device.type == "cuda":
+        return torch.as_tensor(fill, device=dev).to(dtype).reshape(1), 0
+    t = torch.as_tensor(fill).to(dtype).reshape(1)
+    bits = int.from_bytes(bytes(t.view(torch.uint8).tolist()), "little")
+    return None, bits - (1 << 32) if bits >= 1 << 31 else bits
+
+
+def _shift2pass_cuda(srcs, fills, grid, plan, a: int):
+    """K10: pass 1 along y into an intermediate plane a source, pass 2
+    along x into the results, one launch each."""
+    from blackbox_tpu_torch import kernels
+    order, H, passes = plan
+    dev = srcs[0].device
+    Hs, W = srcs[0].shape
+    if len(grid) == 4:
+        sy, sx, Wy, Wx = grid
+        coords = tuple(upsample_grid(torch.as_tensor(
+            c, dtype=torch.float32, device=dev), Wy, Wx).contiguous()
+            for c in (sy, sx))
+        step, nx = 0, 0
+    elif len(grid) == 3:
+        coords = tuple(torch.as_tensor(c, device=dev).to(torch.float32)
+                       .contiguous() for c in grid[:2])
+        step, nx = int(grid[2]), coords[0].shape[1]
+    else:
+        coords = tuple(g.contiguous() for g in grid)
+        step, nx = 0, 0
+    ins = [srcs[i].contiguous() for i in order]
+    inv_step = float(np.float32(1.0) / np.float32(max(step, 1)))
+    inv_a = float(np.float32(1.0) / np.float32(a))
+
+    def run(planes, outs, fill_words, strips_kmin_taps, axis):
+        strips, kmin, taps = strips_kmin_taps
+        held = [t for t, _ in fill_words if t is not None]
+        kernels.launch(
+            "warp_pass", (*planes, *outs, *coords, *held),
+            kernels.host_pointers([t.data_ptr() for t in planes]),
+            kernels.host_pointers([t.data_ptr() for t in outs]),
+            kernels.host_pointers([None if t is None else t.data_ptr()
+                                   for t, _ in fill_words]),
+            kernels.host_ints([v for t, (_, bits) in zip(planes, fill_words)
+                               for v in (t.element_size(), bits)]),
+            len(planes) - 1, coords[0].data_ptr(), coords[1].data_ptr(),
+            nx, step, inv_step, H, W, Hs,
+            kernels.host_ints([v for st in strips for v in st]),
+            len(strips), kernels.host_floats(taps), kmin, len(taps) // 3,
+            a, inv_a, axis)
+
+    mid = [torch.empty((H, W), dtype=torch.float32 if k == 0 else t.dtype,
+                       device=dev) for k, t in enumerate(ins)]
+    run(ins, mid, [(None, 0)] * len(ins), passes[0], 0)
+    outs = [torch.empty((H, W), dtype=t.dtype, device=dev) for t in ins]
+    run(mid, outs, [_fill_word(fills[i], srcs[i].dtype, dev)
+                    for i in order], passes[1], 1)
+    results = [None] * len(srcs)
+    for i, o in zip(order, outs):
+        results[i] = o
+    return tuple(results)
 
 
 def grid_row_margin(sy, step: int = 32, a: int = 3) -> int:

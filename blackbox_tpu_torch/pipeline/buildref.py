@@ -46,6 +46,7 @@ from blackbox_tpu_torch.ops.coadd import (
 from blackbox_tpu_torch.ops.warp import (
     grid_shift_ranges, lanczos_resample, nearest_resample, remap_grid,
     remap_grid_coarse, upsample_grid, warp_shift2pass)
+from blackbox_tpu_torch.utils.timing import span
 
 log = logging.getLogger(__name__)
 
@@ -245,8 +246,9 @@ def coadd_field(inputs: Sequence[RefInput], out_wcs, out_shape,
                                                device=dev), Wy, Wx)
             xs = upsample_grid(torch.as_tensor(sx_c, dtype=torch.float32,
                                                device=dev), Wy, Wx)
-            img, std, msk = warp_shift2pass(srcs, _MODES, _FILLS, (ys, xs),
-                                            ranges)
+            with span("warp"):
+                img, std, msk = warp_shift2pass(srcs, _MODES, _FILLS,
+                                                (ys, xs), ranges)
         else:
             ys, xs = (torch.as_tensor(g, device=dev)
                       for g in remap_grid(inp.wcs, out_wcs, out_shape))
@@ -430,9 +432,10 @@ def coadd_field_blocked(inputs: Sequence[RefInput], out_wcs, out_shape,
             yl = upsample_grid(dev_cy[i], Wy, Wx)
             xl = upsample_grid(dev_cx[i], Wy, Wx)
             if remap == "shift2pass":
-                img, std, m = warp_shift2pass(
-                    (dev_i[i], st, dev_m[i]), _MODES, _FILLS, (yl, xl),
-                    ranges[i])
+                with span("warp"):
+                    img, std, m = warp_shift2pass(
+                        (dev_i[i], st, dev_m[i]), _MODES, _FILLS, (yl, xl),
+                        ranges[i])
             else:
                 img = lanczos_resample(dev_i[i], yl, xl)
                 std = nearest_resample(st, yl, xl, fill=0.0)

@@ -236,6 +236,17 @@ def span(name: str, join: str | None = None, **attrs):
     return Span(rec, name, join, attrs)
 
 
+def annotate(name: str, **attrs) -> None:
+    """Add ``attrs`` to the innermost span open on this thread if it is
+    named ``name`` (for a function that learns what its caller's span
+    should say); no-op otherwise and outside :func:`recording`."""
+    rec = Recorder.active
+    if rec is not None:
+        stack = rec._stack()
+        if stack and stack[-1].name == name:
+            stack[-1].set(**attrs)
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` inside :func:`recording`; no-op
     outside it."""

@@ -20,8 +20,11 @@ Phases, each printing its own lines:
    exclusion, 32 steps) and its transient form (|x|, no taps, 48
    steps), and the hole fill (K8) on a frame's two calls, a
    16 x 5280 x 1320 stack of closed saturated-star masks and a 10560²
-   cosmic mosaic, at one round and at three, and the stack median (K9)
-   at the masters' cubes.  Both times come from CUDA events (K4's two
+   cosmic mosaic, at one round and at three, the stack median (K9)
+   at the masters' cubes, and the science remap's two passes (K10) at
+   ``ml1.transient``'s registration (0.05 deg, offset (3.2, -2.7),
+   32-px nodes, 8 strips), each pass timed apart under
+   ``torch.profiler``.  Both times come from CUDA events (K4's two
    calls, ~0.1 ms each, as the median of 25 launches each timed apart
    from an idle card and again behind a sleep kernel, ``median_ms``);
    each kernel's bound is the least time ``portbench/peaks.least_s``
@@ -186,8 +189,8 @@ The launch counts (``kernels.launches``, by wrapper name) are cleared
 just before each of phases 3, 4, 5, 7's full night, 8, 9, 10, 11 and
 12 and read just after it: every kernel of a phase's path must have
 moved, K1 must show 1 launch per catalog frame and 2 per
-science frame (its 48 transient steps are one launch), K6 6 per science
-frame, K7 3 per frame it calibrates (it counts iterations, four CUDA
+science frame (its 48 transient steps are one launch), K6 6 and K10 2
+per science frame in phase 4, K7 3 per frame it calibrates (it counts iterations, four CUDA
 launches each) and K2 none in phase 5; K8 must show 2 launches a frame
 in phase 3 and be launched in every phase that calibrates a frame (3,
 4, 5, 7, 8, 9, 10 and 12); the night must show K1 3 times
@@ -215,6 +218,7 @@ import torch
 
 from blackbox_tpu_torch import kernels
 from portbench import peaks
+from portbench.frames import registration
 
 SEEDS = (12345, 12346, 12347)
 FRATIO = 1.3            # the reference is made 1.3x deeper (bench.py)
@@ -505,6 +509,8 @@ def check_kernels(card):
     results.append(check_fill_holes(card))
     torch.cuda.empty_cache()
     results.append(check_stack_median(card))
+    torch.cuda.empty_cache()
+    results.append(check_warp(card))
     return results
 
 
@@ -856,6 +862,85 @@ def check_stack_median(card):
                 call_plain_ms=[c[1] for c in calls.values()],
                 call_bound_ms=[c[2] for c in calls.values()],
                 signed_zeros=signs)
+
+
+def k10_ops(H, W, ranges):
+    """Float operations of csrc/warp.cu's two passes over an (H, W)
+    frame in the (sy, sx, step) form with per-strip ``ranges``: each
+    shift of a pixel's strip 25 (k's conversion, ds, the numerator's 5,
+    pi * ds and its square, |ds|, the NaN test and max, the tap test and
+    select, the IEEE division's 6 on its fast path: a reciprocal, four
+    fused multiply-adds and a check, the range test and select, the norm
+    and the plane's multiply-add); each pixel a pass 3 transcendentals,
+    counted as one instruction each (their least), and 28 more (pass 1:
+    the lerp of ys from the nodes 13, d 2, d0, pi * d0 and / a 4, the
+    norm's test and select and the division 8, rint 1), 24 more in pass
+    2 (the lerp of xs, and the two in-frame tests)."""
+    ry, rx = ranges
+
+    def shifts(r, n_perp, n_along):
+        B = len(r)
+        return sum((((b + 1) * n_perp) // B - (b * n_perp) // B) * n_along
+                   * max(r1 - r0 + 1, 0) for b, (r0, r1) in enumerate(r))
+
+    per_shift, pixel1, pixel2 = 25, 3 + 28, 3 + 28 + 24
+    return float(per_shift * (shifts(ry, W, H) + shifts(rx, H, W))
+                 + (pixel1 + pixel2) * H * W)
+
+
+def check_warp(card):
+    """K10 against the plain route on the card, bit for bit, on the
+    science remap of ``ml1.transient``: a background-subtracted star
+    field (Lanczos), its noise map and a sparse uint8 mask (nearest),
+    the fills (0, a device scalar, EDGE), 8 strips of 32-px nodes; each
+    pass's device time apart.  The bound is the larger of the two-pass
+    form's bytes (36 a pixel: the three planes read, written as
+    intermediates, read again and written as results; the coordinates
+    come from the coarse nodes) and its float operations
+    (:func:`k10_ops`)."""
+    from blackbox_tpu_torch.core import maskbits
+    from blackbox_tpu_torch.core.geometry import MEERLICHT
+    from blackbox_tpu_torch.ops import warp
+
+    H, W = MEERLICHT.red_shape
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    img = star_field(H, W, gen) - 300.0
+    std = 5.0 + torch.rand((H, W), generator=gen, device="cuda")
+    msk = (torch.rand((H, W), generator=gen, device="cuda") < 0.02).to(
+        torch.uint8) * maskbits.SATURATED
+    sy, sx, _ = registration((H, W), 0.05, (3.2, -2.7), 32)
+    ranges = warp.grid_shift_ranges(sy, sx, step=32, blocks=8)
+    args = ((img, std, msk), ("lanczos", "nearest", "nearest"),
+            (0.0, torch.median(std), maskbits.EDGE),
+            (torch.from_numpy(sy).cuda(), torch.from_numpy(sx).cuda(), 32),
+            ranges)
+    before = kernels.launches["warp_pass"]
+    got = warp.warp_shift2pass(*args)
+    if kernels.launches["warp_pass"] != before + 2:
+        raise AssertionError("the science remap did not run K10's two "
+                             "passes")
+    want = warp._shift2pass_plain(*args)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    for g, w in zip(got, want):
+        if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+            raise AssertionError("K10: bits differ from the plain route")
+    filled = int((want[2] & maskbits.EDGE).sum())
+    del got, want
+    tk = cuda_ms(lambda: warp.warp_shift2pass(*args), reps=20)
+    tpl = cuda_ms(lambda: warp._shift2pass_plain(*args), reps=3)
+    passes = {k: ms for name, (ms, _)
+              in device_times(lambda: warp.warp_shift2pass(*args)).items()
+              for k in ("warp_rows", "warp_cols") if k in name}
+    b = least_ms(36.0 * H * W, k10_ops(H, W, ranges))
+    print(f"K10 warp_pass {H}x{W}, 3 planes, ranges {ranges}: bit-exact "
+          f"({filled} pixels filled EDGE), kernel {tk:.3f} ms "
+          f"({100 * b[0] / tk:.1f}% of its bound; passes "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in passes.items())
+          + f"), plain {tpl:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); 2 "
+          f"launches a science frame [{card}]")
+    return dict(entry("warp_pass", "blackbox_tpu_torch/csrc/warp.cu",
+                      "none (blackbox_tpu/ops/warp.py, XLA)", err, tk, tpl,
+                      *b), pass_ms=passes)
 
 
 def k7_ops():
@@ -3264,7 +3349,7 @@ def main() -> int:
     c4 = read_counts("raw -> transient catalog", card,
                      ("label_propagate", "median_filter",
                       "gather_slot_windows", "fft_cols_split",
-                      "fused_detect", "fill_holes"))
+                      "fused_detect", "fill_holes", "warp_pass"))
     # one K1 launch for the reference's catalog, then two a science
     # frame (the catalog's 32 steps, the transients' 48 in one launch),
     # none in the frame where BBTPU_PALLAS_DETECT=1 routes both to K5
@@ -3274,6 +3359,10 @@ def main() -> int:
     if c4["fft_cols_split"] != 6 * nframes:
         raise AssertionError(f"fft_cols_split: {c4['fft_cols_split']} "
                              f"launches for {nframes} science frames")
+    # the remap's two passes a science frame
+    if c4["warp_pass"] != 2 * nframes:
+        raise AssertionError(f"warp_pass: {c4['warp_pass']} launches for "
+                             f"{nframes} science frames")
 
     torch.cuda.empty_cache()
 

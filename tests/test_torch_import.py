@@ -144,6 +144,7 @@ HOST_COPIES = {
         "Span": "the port's spans and counters",
         "Recorder": "the port's spans and counters",
         "span": "the port's spans and counters",
+        "annotate": "the port's spans and counters",
         "count": "the port's spans and counters",
         "recording": "the port's spans and counters"},
     "pipeline.headers": {},

@@ -182,6 +182,15 @@ def test_tree_and_frames(recorded):
     assert counters["host.reads"] > 0
 
 
+def test_warp_span_carries_the_route(recorded):
+    """The science back's ``warp`` span says which route the two-pass
+    remap took: ``plain`` on the CPU (``kernel``, K10, on the card:
+    ``tests/test_torch_warpkernel.py``)."""
+    _, spans, _ = recorded
+    assert [s.attrs.get("route") for s in spans if s.name == "warp"] == [
+        "plain"]
+
+
 def _leaves(x, path=""):
     if isinstance(x, dict):
         for k in sorted(x):
